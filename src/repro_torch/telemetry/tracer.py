@@ -1,0 +1,168 @@
+"""Span tracer with Chrome trace-event export (loads in Perfetto).
+
+The tracer records *spans* — named wall-clock intervals with optional
+attributes — around the fused pipeline's flush phases and the serve
+tier's ticks. Export is the Chrome trace-event JSON format
+(``tracer.export("trace.json")``), so any trace opens directly in
+Perfetto / ``chrome://tracing``.
+
+Zero-overhead-when-disabled contract: nothing in the repo constructs a
+``Tracer`` unless asked (``pum.profile()``, ``ServeEngine(telemetry=
+True)``); instrumented code paths use :data:`NULL_TRACER` when none is
+attached, whose ``span()`` returns a shared no-op context manager — no
+clock reads, no allocation, no event list. Tracing never feeds back into
+scheduling, results, or the cost plane (invariance is tested).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+
+class Span:
+    """One open span: a context manager stamping enter/exit wall time.
+
+    After exit, ``dur_ns`` holds the span duration (integer nanoseconds);
+    callers feed it into ``CounterBank.observe`` for latency histograms.
+    """
+
+    __slots__ = ("_tracer", "name", "args", "_t0", "dur_ns")
+
+    def __init__(self, tracer: "Tracer", name: str, args: dict):
+        self._tracer = tracer
+        self.name = name
+        self.args = args
+        self._t0 = 0
+        self.dur_ns = 0
+
+    def __enter__(self) -> "Span":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        t1 = time.perf_counter_ns()
+        self.dur_ns = t1 - self._t0
+        self._tracer._events.append((self.name, self._t0, t1, self.args))
+
+
+class _NullSpan:
+    """Shared no-op span: enter/exit do nothing, ``dur_ns`` stays 0."""
+
+    __slots__ = ()
+    name = ""
+    dur_ns = 0
+
+    @property
+    def args(self) -> dict:
+        # A fresh throwaway dict per access: instrumented code may late-set
+        # span attributes (``sp.args["k"] = v``); on the shared null span
+        # those writes must vanish instead of accreting on a class dict.
+        return {}
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _NullTracer:
+    """Disabled-path stand-in: every method is a no-op returning the
+    shared null span. Instrumented code writes ``tr = tracer or
+    NULL_TRACER`` and stays branch-free."""
+
+    __slots__ = ()
+
+    def span(self, name: str, **args) -> _NullSpan:
+        return _NULL_SPAN
+
+    def add_span(self, name: str, t0_ns: int, t1_ns: int, **args) -> None:
+        pass
+
+    def instant(self, name: str, **args) -> None:
+        pass
+
+
+NULL_TRACER = _NullTracer()
+
+
+class Tracer:
+    """Collects spans; exports Chrome trace-event JSON.
+
+    >>> tr = Tracer()
+    >>> with tr.span("phase", detail=3):
+    ...     pass
+    >>> [name for name, *_ in tr.events]
+    ['phase']
+    """
+
+    __slots__ = ("_events",)
+
+    def __init__(self):
+        # (name, t0_ns, t1_ns, args) — perf_counter_ns timestamps.
+        self._events: list[tuple[str, int, int, dict]] = []
+
+    @property
+    def events(self) -> list[tuple[str, int, int, dict]]:
+        """Recorded spans as ``(name, t0_ns, t1_ns, args)`` tuples
+        (instants have ``t1_ns == t0_ns``)."""
+        return list(self._events)
+
+    def span(self, name: str, **args) -> Span:
+        """Context manager timing one named phase."""
+        return Span(self, name, args)
+
+    def add_span(self, name: str, t0_ns: int, t1_ns: int, **args) -> None:
+        """Record a span from explicit ``perf_counter_ns`` timestamps
+        (used for phases whose start predates the tracer's attention,
+        e.g. the record phase stamped at first-op time)."""
+        self._events.append((name, t0_ns, t1_ns, args))
+
+    def instant(self, name: str, **args) -> None:
+        """Record a zero-duration marker."""
+        now = time.perf_counter_ns()
+        self._events.append((name, now, now, args))
+
+    def span_names(self) -> list[str]:
+        """Names of recorded spans, in start order."""
+        return [name for name, *_ in sorted(self._events,
+                                            key=lambda e: e[1])]
+
+    # -- export --------------------------------------------------------- #
+
+    def to_chrome(self, counters=None) -> dict:
+        """The trace as a Chrome trace-event object (``traceEvents`` of
+        complete/instant events, microsecond timestamps). ``counters``
+        (a ``CounterBank``) is attached as a final instant event so the
+        numbers travel with the trace."""
+        events = []
+        for name, t0, t1, args in sorted(self._events, key=lambda e: e[1]):
+            ev = {"name": name, "ph": "X" if t1 > t0 else "i",
+                  "ts": t0 / 1e3, "pid": 0, "tid": 0}
+            if t1 > t0:
+                ev["dur"] = (t1 - t0) / 1e3
+            else:
+                ev["s"] = "g"
+            if args:
+                ev["args"] = dict(args)
+            events.append(ev)
+        if counters is not None:
+            ts = events[-1]["ts"] + events[-1].get("dur", 0) if events else 0
+            events.append({"name": "counters", "ph": "i", "ts": ts,
+                           "pid": 0, "tid": 0, "s": "g",
+                           "args": counters.as_dict()})
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export(self, path: str, counters=None) -> str:
+        """Write the Chrome trace JSON to ``path`` (open it in Perfetto
+        or ``chrome://tracing``); returns ``path``."""
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.to_chrome(counters), f, indent=1)
+        return path
+
+    def __repr__(self) -> str:
+        return f"Tracer({len(self._events)} spans)"
