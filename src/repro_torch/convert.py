@@ -1,16 +1,19 @@
 """State carried from the reference into the port.
 
-The reference's state is programs, success points and leaf data. These
-helpers take plain Python and NumPy values (never ``repro`` objects), so
-tests can feed the same program and the same characterization data to
-both packages.
+The reference's state is programs, success points, reliability maps and
+leaf data. These helpers take plain Python and NumPy values (never
+``repro`` objects), so tests can feed the same program, the same
+characterization data and the same calibrated chip to both packages.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from repro_torch.core.charact import SuccessRateDb
 from repro_torch.kernels.fused_program import FusedOp, FusedProgram
 from repro_torch.kernels.plane_layout import get_layout
+from repro_torch.reliability.calibration import ReliabilityMap
 
 
 def program_from_reference(width: int, n_inputs: int, ops, outputs,
@@ -51,3 +54,19 @@ def success_db_from_points(points) -> SuccessRateDb:
                      "hi": float(p["hi"]),
                      "plan_style": str(p["plan_style"])})
     return SuccessRateDb(rows)
+
+
+def reliability_map_from_reference(*, mfr, seed, n_subarrays, n_columns,
+                                   configs, success, flip_p,
+                                   bank_scale) -> ReliabilityMap:
+    """The port's :class:`ReliabilityMap` from a reference map's plain
+    fields (``configs`` as ``(m_inputs, n_rg)`` pairs, the three arrays as
+    NumPy). The arrays are copied, so the two maps share no memory; with
+    it both packages plan, inject and vote on the same calibrated chip."""
+    return ReliabilityMap(
+        mfr=str(mfr), seed=int(seed), n_subarrays=int(n_subarrays),
+        n_columns=int(n_columns),
+        configs=tuple((int(m), int(n)) for m, n in configs),
+        success=np.array(success, np.float64),
+        flip_p=np.array(flip_p, np.float32),
+        bank_scale=np.array(bank_scale, np.float64))

@@ -1,29 +1,56 @@
-"""Success rates of MAJ-M at N_RG, served from a checked-in table.
+"""Characterization harness (paper §6.1.1, Figs 14-16, Table 1).
 
-The reference draws these rates from an analog Monte-Carlo model over
-``jax.random`` streams, which torch cannot reproduce bit for bit. The port
-ships the reference's ``default_db()`` points instead
-(``success_points.json``, regenerated by
-``python tests/test_torch_cost_plane.py --regen``): every point the engine's
-per-op configuration search can ask for (:func:`query_points`), so the cost
-plane charges exactly the floats the reference charges. Any other point
-raises; the Monte-Carlo model itself comes with the analog slice (kernel
-``charge_share``).
+Success rates of MAJ-M at N_RG come from two databases:
+
+* :class:`MonteCarloDb` — the port's copy of the reference's
+  ``SuccessRateDb``: runs the analog Monte-Carlo model
+  (``core/analog.py``, whose bitline deviation is the charge-sharing
+  kernel on a CUDA device) across (manufacturer, MAJ-M, N_RG) and
+  aggregates per-row-group success rates the way the paper does, with the
+  systematic spatial variation across subarrays (Fig 16) on top of the
+  random per-cell variation. Its draws are ``torch.Generator`` streams, so
+  its rates agree with the reference's statistically, not bit for bit.
+* :class:`SuccessRateDb` — the reference's ``default_db()`` points as a
+  checked-in table (``success_points.json``, regenerated by
+  ``python tests/test_torch_cost_plane.py --regen``): every point the
+  engine's per-op configuration search can ask for
+  (:func:`query_points`). :func:`default_db` and the engine keep this
+  table, so the cost plane charges exactly the floats the reference
+  charges. Any other point raises and names :class:`MonteCarloDb`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
+import zlib
 from functools import lru_cache
 
+import numpy as np
+
+from repro_torch.core import analog
 from repro_torch.core.profiles import PROFILES
+from repro_torch.core.replication import plan as replication_plan, plan_pow2
 
 TABLE_PATH = pathlib.Path(__file__).with_name("success_points.json")
 
-_ANALOG_SLICE = ("the analog Monte-Carlo slice (core/analog.py and the "
-                 "charge_share kernel) is not ported yet")
+_NOT_TABULATED = ("the checked-in table holds only the engine's query "
+                  "points; MonteCarloDb (the analog Monte-Carlo model) "
+                  "computes any point")
+
+
+def spatial_pv_multiplier(subarray: int, n_subarrays: int) -> float:
+    """Systematic process-variation modulation across a bank.
+
+    Fig 16 reports an M-shaped success-rate profile (peaks in the 1st and
+    3rd quarters). Success falls when variation rises, so sigma_pv is
+    modulated with a W-shaped (inverted-M) profile: minima at x=0.25 and
+    x=0.75, mapped to a [0.9, 1.25] multiplier.
+    """
+    x = (subarray + 0.5) / n_subarrays
+    return 1.075 + 0.175 * math.cos(4 * math.pi * x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,18 +106,122 @@ class SuccessRateDb:
             raise ValueError(f"Mfr {mfr} caps at {profile.max_simul_rows} rows")
         if subarray_frac is not None:
             raise NotImplementedError(
-                f"per-subarray success rates need the Monte-Carlo model: "
-                f"{_ANALOG_SLICE}")
+                f"no tabulated per-subarray success rates: "
+                f"{_NOT_TABULATED}")
         sp = self._points.get((mfr, m_inputs, n_rg, plan_style))
         if sp is None:
             raise NotImplementedError(
                 f"no tabulated success rate for mfr={mfr!r} MAJ{m_inputs} "
-                f"at N_RG={n_rg} ({plan_style} plan): {_ANALOG_SLICE}")
+                f"at N_RG={n_rg} ({plan_style} plan): {_NOT_TABULATED}")
         return sp
 
     def mean(self, mfr: str, m_inputs: int, n_rg: int,
              plan_style: str = "max") -> float:
         return self.point(mfr, m_inputs, n_rg, plan_style=plan_style).mean
+
+
+class MonteCarloDb:
+    """Monte-Carlo success rates (the reference's ``SuccessRateDb``),
+    computed on ``device`` and cached per point.
+
+    Each point runs ``n_groups`` row groups of ``n_bitlines`` bitlines
+    under ``n_patterns`` random input patterns; group ``g`` draws from a
+    generator seeded with the reference's integer for its PRNG key
+    (``seed * 7919 + crc32(repr(key)) % 2**31 + g``). Same arguments on
+    the same device type => the same rates.
+    """
+
+    def __init__(self, n_bitlines: int = 2048, n_groups: int = 24,
+                 n_patterns: int = 48, seed: int = 0, device="cuda"):
+        self.n_bitlines = n_bitlines
+        self.n_groups = n_groups
+        self.n_patterns = n_patterns
+        self.seed = seed
+        self.device = device
+        self._cache: dict[tuple, SuccessPoint] = {}
+
+    def point(self, mfr: str, m_inputs: int, n_rg: int,
+              subarray_frac: float | None = None,
+              plan_style: str = "max") -> SuccessPoint:
+        key = (mfr, m_inputs, n_rg,
+               None if subarray_frac is None else round(subarray_frac, 3),
+               plan_style)
+        if key in self._cache:
+            return self._cache[key]
+        profile = PROFILES[mfr]
+        if n_rg > profile.max_simul_rows:
+            raise ValueError(f"Mfr {mfr} caps at {profile.max_simul_rows} rows")
+        rp = (plan_pow2 if plan_style == "pow2" else replication_plan)(
+            m_inputs, n_rg)
+        pv_mult = (spatial_pv_multiplier(int(subarray_frac * 16), 16)
+                   if subarray_frac is not None else 1.0)
+        # Stable (non-salted) per-key hash for reproducible streams.
+        key_hash = zlib.crc32(repr(key).encode())
+        rates = []
+        for g in range(self.n_groups):
+            gen = analog.seeded_generator(
+                self.seed * 7919 + key_hash % (2**31) + g, self.device)
+            rate, _ = analog.maj_success_rate(
+                gen, profile, m_inputs=m_inputs, copies=rp.copies,
+                n_neutral=rp.n_neutral, n_bitlines=self.n_bitlines,
+                n_patterns=self.n_patterns,
+                process_variation=profile.process_variation * pv_mult)
+            rates.append(rate)
+        arr = np.array(rates)
+        sp = SuccessPoint(mfr, m_inputs, n_rg, float(arr.mean()),
+                          float(np.quantile(arr, 0.25)),
+                          float(np.quantile(arr, 0.75)),
+                          float(arr.min()), float(arr.max()))
+        self._cache[key] = sp
+        return sp
+
+    def mean(self, mfr: str, m_inputs: int, n_rg: int,
+             plan_style: str = "max") -> float:
+        return self.point(mfr, m_inputs, n_rg, plan_style=plan_style).mean
+
+    def fig14_maj3_vs_n(self, mfr: str) -> dict[int, SuccessPoint]:
+        """MAJ3 success vs N_RG (Fig 14)."""
+        prof = PROFILES[mfr]
+        return {n: self.point(mfr, 3, n) for n in (4, 8, 16, 32)
+                if n <= prof.max_simul_rows}
+
+    def fig15_majm(self, mfr: str) -> dict[tuple[int, int], SuccessPoint]:
+        """MAJ3/5/7/9 success vs N_RG (Fig 15)."""
+        prof = PROFILES[mfr]
+        return {(m, n): self.point(mfr, m, n)
+                for m in (3, 5, 7, 9) for n in (4, 8, 16, 32)
+                if m <= n <= prof.max_simul_rows}
+
+    def fig16_spatial(self, mfr: str = "H", n_subarrays: int = 16,
+                      n_rg: int = 32) -> list[tuple[int, float, float]]:
+        """Per-subarray MAJ3 success for PULSAR vs FracDRAM (Fig 16).
+        Returns [(subarray, pulsar_rate, fracdram_rate)]."""
+        prof = PROFILES[mfr]
+        n_rg = min(n_rg, prof.max_simul_rows)
+        rows = []
+        for sa in range(n_subarrays):
+            frac = (sa + 0.5) / n_subarrays
+            p = self.point(mfr, 3, n_rg, subarray_frac=frac)
+            f = self.point(mfr, 3, 4, subarray_frac=frac)
+            rows.append((sa, p.mean, f.mean))
+        return rows
+
+    def best_n_rg(self, mfr: str, m_inputs: int,
+                  latency_fn) -> tuple[int, float]:
+        """Pick the N_RG maximizing throughput = SR / latency(M, N) — the
+        paper's per-op configuration search (§6.1.2)."""
+        prof = PROFILES[mfr]
+        best, best_t = None, -1.0
+        n = 4
+        while n <= prof.max_simul_rows:
+            if n >= m_inputs:
+                thr = self.mean(mfr, m_inputs, n) / latency_fn(m_inputs, n)
+                if thr > best_t:
+                    best, best_t = n, thr
+            n <<= 1
+        if best is None:
+            raise ValueError(f"MAJ{m_inputs} unsupported on Mfr {mfr}")
+        return best, best_t
 
 
 def load_points(path=TABLE_PATH) -> list[dict]:

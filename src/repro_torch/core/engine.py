@@ -13,9 +13,16 @@ coupled planes:
     kernel unpacks the outputs once; on the CPU the same program runs in
     the word domain (``words-torch``).
   * cost plane: every op is priced at record time by the closed-form cost
-    model (per-op best-throughput N_RG from the tabulated success rates),
-    identically in eager and fused mode, so ``EngineStats`` match the
-    reference's float for float.
+    model (per-op best-throughput N_RG from the tabulated success rates,
+    or from a calibrated reliability map), identically in eager and fused
+    mode, so ``EngineStats`` match the reference's float for float.
+
+``reliability=`` (a ``ReliabilityConfig`` or ``ReliabilityMap``) attaches a
+:class:`~repro_torch.reliability.ReliabilityPlane`: the map drives the
+per-op replication choice, and with ``inject=True`` every fused flush runs
+the fault-injection + replica-vote/retry loop on the flush's device (the
+MAJ-N kernel on a CUDA device). The map's bank ranking waits for the
+controller slice.
 
 Width semantics: fused arithmetic computes modulo 2**width; arithmetic
 operands with bits at or above ``width`` are rejected at record time. The
@@ -26,9 +33,9 @@ and the lanes re-join at materialization.
 
 Later slices bring the reference's other paths; asking for one raises
 ``NotImplementedError`` naming its slice: ``controller=`` (the controller
-slice), ``reliability=`` (the reliability slice), ``backend="sim"`` (the
-chip-model slice), and, on ``pum.Device``, ``flush_async``/``client``/
-``capture`` (the concurrency slice) and ``autotune`` (the autotune slice).
+slice), ``backend="sim"`` (the chip-model slice), and, on ``pum.Device``,
+``flush_async``/``client``/``capture`` (the concurrency slice) and
+``autotune`` (the autotune slice).
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ from repro_torch.core.profiles import PROFILES
 from repro_torch.kernels import fused_program as _fused
 from repro_torch.kernels.fused_program import (FusedOp, FusedProgram,
                                                get_pipeline,
-                                               optimize_program)
+                                               optimize_program,
+                                               with_fault_injection)
 from repro_torch.kernels.plane_layout import (PlaneLayout, get_layout,
                                               layout_for_width)
 from repro_torch.telemetry import NULL_TRACER, CounterBank
@@ -468,9 +476,6 @@ class PulsarEngine:
         if controller is not None:
             raise _later_slice("controller-scheduled pricing (controller=)",
                                "the controller slice")
-        if reliability is not None:
-            raise _later_slice("the reliability plane (reliability=)",
-                               "the reliability slice")
         if not 1 <= ref_postponing <= 8:
             raise ValueError(
                 f"ref_postponing must be in [1, 8] (JEDEC allows "
@@ -483,7 +488,6 @@ class PulsarEngine:
             raise ValueError(f"cmd_buffer_lookahead must be >= 1, got "
                              f"{cmd_buffer_lookahead}")
         self.controller = None
-        self.reliability = None
         self.ref_postponing = ref_postponing
         self.cmd_buffer_lookahead = cmd_buffer_lookahead
         self.cost = CostModel(row_bits=row_bits)
@@ -553,6 +557,19 @@ class PulsarEngine:
         # attached); the disabled path is one `is None` check per flush.
         self.counters = CounterBank()
         self.tracer = None
+        # Reliability plane: calibrated-map planning plus the flush-time
+        # injection + vote/retry loop. None (default) keeps every path
+        # as it is — one `is None` check per op and per flush.
+        self.reliability = None
+        if reliability is not None:
+            from repro_torch.reliability import ReliabilityPlane
+            self.reliability = ReliabilityPlane(
+                reliability, mfr=mfr, counters=self.counters)
+            if self.reliability.inject and not fuse:
+                raise ValueError(
+                    "reliability fault injection hooks the fused dispatch "
+                    "path; it requires fuse=True (eager ops never run the "
+                    "vote/retry loop)")
         # The normalized program of the most recent fused flush (what the
         # pipeline ran; for inspection).
         self.last_program: FusedProgram | None = None
@@ -614,10 +631,18 @@ class PulsarEngine:
             prof = self.profile
             cap = prof.max_simul_rows
             pows = [n for n in (4, 8, 16, 32) if n <= cap]
+            rel = self.reliability
 
             def sr_of(m, n):
                 if n < m:
                     return 0.0
+                if rel is not None:
+                    # Variation-aware planning: the calibrated map's
+                    # (steering-weighted) rate for profiled configs; the
+                    # global table covers the rest.
+                    s = rel.plan_success(m, n)
+                    if s is not None:
+                        return s
                 return self.db.mean(self.mfr, m, n, plan_style="pow2")
 
             candidates: list[tuple[int, int, int | None]] = []
@@ -637,6 +662,8 @@ class PulsarEngine:
                             candidates.append((m, n, None))
                     m += 2
             best = None
+            best_ok = None  # reliability: best config MEETING the target
+            target = (rel.config.target_success if rel is not None else None)
             for m, n, n3 in candidates:
                 sr = sr_of(m, n)
                 if n3 is not None:
@@ -647,10 +674,17 @@ class PulsarEngine:
                 eff = cost.latency_ns / sr
                 if best is None or eff < best[0]:
                     best = (eff, m, n, sr, cost)
+                if target is not None and sr >= target \
+                        and (best_ok is None or eff < best_ok[0]):
+                    best_ok = (eff, m, n, sr, cost)
             if best is None:
                 raise ValueError(f"no viable config for {kind} on Mfr "
                                  f"{self.mfr}")
-            self._best_cfg_cache[key] = best[1:]
+            # Per-op replication choice (Fig 11): prefer the fastest config
+            # whose calibrated success meets the reliability target; only
+            # when none does fall back to raw throughput (the vote/retry
+            # loop then carries the correction burden).
+            self._best_cfg_cache[key] = (best_ok or best)[1:]
         return self._best_cfg_cache[key]
 
     def _n_vec_rows(self, n_elems: int) -> int:
@@ -661,6 +695,9 @@ class PulsarEngine:
         with self._lock:
             w = width or self.width
             m, n, sr, cost = self._cfg_for(kind, w, n_planes)
+            if self.reliability is not None:
+                # The flush-time vote loop injects at the worst config used.
+                self.reliability.note_op(m, n, sr)
             self._stats.charge(cost, self._n_vec_rows(n_elems), self.banks,
                                sr)
 
@@ -921,10 +958,20 @@ class PulsarEngine:
                 self.counters.inc("engine.pipeline_cache.hit" if hit
                                   else "engine.pipeline_cache.miss")
                 sp_c.args["cache"] = "hit" if hit else "miss"
+        rel = self.reliability
         with tr.span("flush.dispatch", n_ops=len(program.ops),
-                     n_lanes=g.n):
+                     n_lanes=g.n) as sp_d:
             tensors = self._resolve_cached_leaves(g, pipeline, leaves)
-            outs = pipeline(*tensors)
+            if rel is not None and rel.inject:
+                # Fault-injection hook: the pipeline runs once clean, then
+                # the reliability plane votes over map-driven faulty
+                # replicas, retrying/escalating on weak margins.
+                voted = with_fault_injection(
+                    pipeline,
+                    lambda o: rel.correct(o, program, g.n, span=sp_d))
+                outs = voted(*tensors)
+            else:
+                outs = pipeline(*tensors)
             # Donating flushes keep no uploaded leaf past the dispatch.
             del tensors
         with tr.span("flush.materialize", n_outputs=len(out_idx)):

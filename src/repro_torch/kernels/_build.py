@@ -99,17 +99,21 @@ def build_many(items) -> None:
             f.result()
 
 
-def load(name: str, source: str, entry: str) -> ctypes.CDLL:
+LAUNCH_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p)
+
+
+def load(name: str, source: str, entry: str,
+         argtypes=LAUNCH_ARGTYPES) -> ctypes.CDLL:
     """The loaded library for ``source`` (built on first use), with its
-    launch ``entry`` typed as ``int entry(void*, void*, long long,
-    void*)``."""
+    launch ``entry`` typed by ``argtypes`` (default ``int entry(void*,
+    void*, long long, void*)``) and returning ``int``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(compile_source(name, source)))
             fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_void_p]
+            fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p

@@ -263,7 +263,7 @@ def _narrow(v: torch.Tensor) -> torch.Tensor:
     return ((v ^ (1 << 31)) - (1 << 31)).to(torch.int32)
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
+def popcount32(x: torch.Tensor) -> torch.Tensor:
     """SWAR popcount of 32-bit words (Hacker's Delight 5-2) held in int32
     or int64 lanes: each right shift is masked, so the sign fill of an
     arithmetic shift never reaches the count."""
@@ -313,7 +313,7 @@ def _apply_word_op(op: FusedOp, xs: list, width: int, mask):
         flip = s32(1 << 31)
         return ((xs[0] ^ flip) < (xs[1] ^ flip)).to(torch.int32)
     if op.opcode == "popcount":
-        return _popcount32(xs[0])
+        return popcount32(xs[0])
     if op.opcode == "reduce_and":
         w = op.param or width
         if w > 32:  # mask(w) exceeds any width-bit value
@@ -322,7 +322,7 @@ def _apply_word_op(op: FusedOp, xs: list, width: int, mask):
     if op.opcode == "reduce_or":
         return (xs[0] != 0).to(torch.int32)
     if op.opcode == "reduce_xor":
-        return _popcount32(xs[0]) & 1
+        return popcount32(xs[0]) & 1
     raise KeyError(op.opcode)
 
 
@@ -416,7 +416,7 @@ def _apply_pair_op(op: FusedOp, xs: list, width: int, mask):
         return (lt.to(torch.int64), zero)
     if op.opcode == "popcount":
         lo, hi = xs[0]
-        return (_popcount32(lo) + _popcount32(hi), zero)
+        return (popcount32(lo) + popcount32(hi), zero)
     if op.opcode == "reduce_and":
         w = op.param or width
         if w > 64:  # mask(w) exceeds any width-bit value
@@ -430,7 +430,7 @@ def _apply_pair_op(op: FusedOp, xs: list, width: int, mask):
         return (((lo | hi) != 0).to(torch.int64), zero)
     if op.opcode == "reduce_xor":
         lo, hi = xs[0]
-        return (_popcount32(lo ^ hi) & 1, zero)
+        return (popcount32(lo ^ hi) & 1, zero)
     raise KeyError(op.opcode)
 
 
@@ -492,6 +492,23 @@ def get_pipeline(program: FusedProgram, device="cuda", donate: bool = False,
 @functools.lru_cache(maxsize=256)  # bounded: one pipeline per structure
 def _cached_pipeline(program: FusedProgram, spec, donate: bool):
     return spec.builder(program, donate=donate)
+
+
+def with_fault_injection(pipeline, injector):
+    """Fault-injection hook over a compiled pipeline.
+
+    ``injector(outs) -> outs`` receives the tuple of clean wire outputs
+    after each execution and returns the outputs to hand to the caller —
+    the reliability plane (``repro_torch.reliability``) derives
+    fault-injected replicas from the clean run, majority-votes them and
+    retries on weak margins. The wrapper is built per flush only when
+    injection is enabled, so the disabled path calls the cached pipeline
+    directly and the cached pipeline stays the same object.
+    """
+    def injected(*leaves):
+        return injector(pipeline(*leaves))
+
+    return injected
 
 
 def build_words_pipeline(program: FusedProgram, donate: bool = False):

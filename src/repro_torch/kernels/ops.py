@@ -9,7 +9,9 @@ keyed by kernel name; ``LAUNCHES.clear()`` starts a window).
 Layout conventions: *horizontal* operands are flat packed words (element
 i = word i); *vertical* operands are bit-plane stacks ``[width, W]`` where
 plane j holds bit j of every element (``bit_transpose32`` converts 32x32
-tiles between the two). ``run_fused_program`` operates on vertical planes.
+tiles between the two). ``run_fused_program`` operates on vertical planes;
+``maj_n`` on any stack of packed 32-bit planes; ``charge_share`` on
+float32 cell fields ``[..., N rows, B bitlines]``.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ import torch
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401 (re-export)
 from repro_torch.kernels.bit_transpose import (bit_transpose32_cuda,
                                                bit_transpose32_plain)
+from repro_torch.kernels.charge_share import (charge_share_cuda,
+                                              charge_share_plain)
 from repro_torch.kernels.fused_program import (FusedProgram,
                                                run_program_cuda,
                                                run_program_ref)
+from repro_torch.kernels.maj_n import maj_n_cuda, maj_n_plain
 
 
 def bit_transpose32(x: torch.Tensor) -> torch.Tensor:
@@ -38,3 +43,20 @@ def run_fused_program(program: FusedProgram, x: torch.Tensor
     if x.is_cuda:
         return run_program_cuda(program, x)
     return run_program_ref(program, x)
+
+
+def maj_n(x: torch.Tensor, threshold: int) -> torch.Tensor:
+    """[N, W] int32 packed planes -> [W]: bit set where at least
+    ``threshold`` of the N planes have it set."""
+    if x.is_cuda:
+        return maj_n_cuda(x, threshold)
+    return maj_n_plain(x, threshold)
+
+
+def charge_share(v: torch.Tensor, caps: torch.Tensor, *, vdd: float,
+                 c_bl: float) -> torch.Tensor:
+    """Bitline deviation: v [N, B] or [P, N, B], caps [N, B] float32 ->
+    [B] or [P, B] volts."""
+    if v.is_cuda:
+        return charge_share_cuda(v, caps, vdd=vdd, c_bl=c_bl)
+    return charge_share_plain(v, caps, vdd=vdd, c_bl=c_bl)

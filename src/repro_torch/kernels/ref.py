@@ -6,7 +6,11 @@
   ``popcount``/``reduce``) — the building blocks of the fused-program
   kernel's plain version (``fused_program.run_program_ref``) *and* of its
   CUDA source: the code generator traces these same functions over
-  symbolic planes (``kernels/codegen.py``).
+  symbolic planes (``kernels/codegen.py``);
+* :func:`maj_n` / :func:`maj_n_fast` — the plain versions of the MAJ-N
+  kernel (``kernels/maj_n.py``);
+* :func:`charge_share` — the plain version of the charge-sharing kernel
+  (``kernels/charge_share.py``).
 
 Lanes and planes are int32 tensors carrying unsigned 32-bit words
 bit-for-bit (torch has no CPU ``>>`` on ``uint32``), so every logical right
@@ -59,6 +63,63 @@ def bit_transpose32(x: torch.Tensor) -> torch.Tensor:
         j >>= 1
         m = (m ^ (m << j)) & 0xFFFFFFFF if j else m
     return torch.stack(rows[::-1])
+
+
+def _check_threshold(x: torch.Tensor, threshold: int) -> int:
+    if x.dim() != 2:
+        raise ValueError(f"expected [N, W] planes, got {tuple(x.shape)}")
+    n = x.shape[0]
+    if not 1 <= threshold <= n:
+        raise ValueError(f"threshold {threshold} not in [1,{n}]")
+    return n
+
+
+def maj_n(x: torch.Tensor, threshold: int) -> torch.Tensor:
+    """Packed-word majority: out bit = (popcount over N rows >= threshold).
+
+    x: [N, W] int32 bit-planes. Returns [W] int32. The bit-unpacking
+    oracle: counts every bit position separately.
+    """
+    _check_threshold(x, threshold)
+    out = torch.zeros_like(x[0])
+    for b in range(32):
+        count = ((x >> b) & 1).sum(dim=0)
+        out = out | ((count >= threshold).to(x.dtype) << b)
+    return out
+
+
+def maj_n_fast(x: torch.Tensor, threshold: int) -> torch.Tensor:
+    """Bit-sliced carry-save form of :func:`maj_n` (the kernel's
+    algorithm): a K-bit counter per bit lane, K = bit_length(N), starts at
+    ``2^K - threshold``; after the N planes are added, the lanes whose
+    count reached ``threshold`` have carried out of the counter, and the
+    OR of those carries is the majority plane."""
+    n = _check_threshold(x, threshold)
+    k = max(1, n.bit_length())
+    init = (1 << k) - threshold
+    zero = torch.zeros_like(x[0])
+    planes = [zero - 1 if (init >> j) & 1 else zero for j in range(k)]
+    overflow = zero
+    for i in range(n):
+        carry = x[i]
+        for j in range(k):
+            t = planes[j] ^ carry
+            carry = planes[j] & carry
+            planes[j] = t
+        overflow = overflow | carry
+    return overflow
+
+
+def charge_share(v: torch.Tensor, caps: torch.Tensor, *, vdd: float,
+                 c_bl: float) -> torch.Tensor:
+    """Bitline deviation ``sum_i C_i (V_i - VDD/2) / (C_bl + sum_i C_i)``.
+
+    v: [N, B] or [P, N, B] float32 cell voltages, caps: [N, B] float32
+    cell capacitances (shared by the P patterns). Returns [B] or [P, B].
+    """
+    num = (caps * (v - 0.5 * vdd)).sum(dim=-2)
+    den = c_bl + caps.sum(dim=0)
+    return num / den
 
 
 # --------------------------------------------------------------------- #

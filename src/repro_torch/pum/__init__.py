@@ -11,7 +11,13 @@ The same surface as ``repro.pum`` for the slice ported so far:
   flushes run the hand-written CUDA kernels; ``device="cpu"`` runs the
   word-domain evaluator;
 * the backend registry (:func:`register_backend` and friends);
-* telemetry (:func:`profile`, :class:`Tracer`, :class:`CounterBank`).
+* telemetry (:func:`profile`, :class:`Tracer`, :class:`CounterBank`);
+* reliability (:func:`calibrate`, :class:`ReliabilityMap`,
+  :class:`ReliabilityConfig`) — calibrate a simulated chip into a
+  per-bank/per-subarray/per-column map on the charge-sharing kernel, then
+  ``EngineConfig(reliability=...)`` (or ``Device.calibrate()``) plans
+  replication from it and, with ``inject=True``, corrects injected faults
+  by replica voting on the MAJ-N kernel.
 """
 
 from repro_torch.backends import (BackendSpec, available_backends,
@@ -20,9 +26,11 @@ from repro_torch.backends import (BackendSpec, available_backends,
 from repro_torch.core.engine import EngineStats
 from repro_torch.kernels.plane_layout import (LAYOUT32, LAYOUT64,
                                               PlaneLayout, get_layout)
-from repro_torch.pum.api import (Device, PumArray, asarray, default_device,
-                                 device, profile)
+from repro_torch.pum.api import (Device, PumArray, as_device, asarray,
+                                 default_device, device, profile)
 from repro_torch.pum.config import EngineConfig
+from repro_torch.reliability import (ReliabilityConfig, ReliabilityMap,
+                                     calibrate)
 from repro_torch.telemetry import CounterBank, Tracer
 
 __all__ = [
@@ -35,9 +43,13 @@ __all__ = [
     "LAYOUT64",
     "PlaneLayout",
     "PumArray",
+    "ReliabilityConfig",
+    "ReliabilityMap",
     "Tracer",
+    "as_device",
     "asarray",
     "available_backends",
+    "calibrate",
     "default_device",
     "device",
     "get_backend",

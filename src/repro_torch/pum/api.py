@@ -48,7 +48,8 @@ class Device:
     :func:`asarray` and flushes any pending fused graph on exit.
     """
 
-    def __init__(self, config: EngineConfig | None = None, **overrides):
+    def __init__(self, config: EngineConfig | None = None, *,
+                 _engine: PulsarEngine | None = None, **overrides):
         if config is None:
             config = EngineConfig(**overrides)
         elif overrides:
@@ -69,6 +70,10 @@ class Device:
             except LookupError:
                 config = config.replace(fuse=False)
         self.config = config
+        self._scalars: dict[tuple, np.ndarray] = {}
+        if _engine is not None:  # as_device(): wrap an existing engine
+            self.engine = _engine
+            return
         self.engine = PulsarEngine(
             mfr=config.mfr, width=config.width,
             row_bits=config.row_bits, banks=config.banks,
@@ -84,7 +89,6 @@ class Device:
             reliability=config.reliability,
             cmd_buffer_lookahead=config.cmd_buffer_lookahead,
             device=config.device)
-        self._scalars: dict[tuple, np.ndarray] = {}
 
     # -- array construction / lifecycle -------------------------------- #
 
@@ -110,8 +114,53 @@ class Device:
     def client(self, name: str):
         raise _later_slice("Device.client", "the concurrency slice")
 
-    def calibrate(self, **kw):
-        raise _later_slice("Device.calibrate", "the reliability slice")
+    def calibrate(self, *, inject: bool = False, attach: bool = True,
+                  n_subarrays: int = 4, n_columns: int = 256,
+                  n_patterns: int = 8, configs=None,
+                  process_variation: float | None = None,
+                  seed: int | None = None, save=None, **policy):
+        """Profile this device's simulated chip into a
+        :class:`~repro_torch.reliability.ReliabilityMap` on the device's
+        ``torch.device`` (the charge-sharing kernel on a CUDA device) and
+        (by default) attach it: subsequent ops plan their fig-11
+        replication factor from the calibrated per-bank/per-subarray
+        success rates. With ``inject=True`` the flush-time fault-injection
+        + replication-vote/retry loop also turns on (requires a fused
+        device). Extra keyword ``policy`` fields (``votes``,
+        ``max_attempts``, ``min_margin``, ``target_success``, ``steer``,
+        ``flip_scale``, reliability ``seed``) go to the
+        :class:`~repro_torch.reliability.ReliabilityConfig`.
+
+        Calibration is seeded from the device config (same device config
+        on the same device type => bit-identical map); ``save=`` persists
+        the map as ``.npz`` (the reference's format) for reuse via
+        ``ReliabilityConfig(map="path.npz")``. The default profile sizes
+        are test-scale — production calibration passes larger
+        ``n_subarrays``/``n_columns``/``n_patterns``. Returns the map.
+        """
+        from repro_torch.reliability import (ReliabilityConfig,
+                                             ReliabilityPlane, calibrate)
+        cfg = self.config
+        rmap = calibrate(
+            cfg.mfr, banks=cfg.banks, n_subarrays=n_subarrays,
+            n_columns=n_columns, n_patterns=n_patterns, configs=configs,
+            seed=cfg.seed if seed is None else seed,
+            process_variation=process_variation,
+            device=self.engine.device)
+        if save is not None:
+            rmap.save(save)
+        if attach:
+            if inject and not self.engine.fuse:
+                raise ValueError(
+                    "reliability fault injection hooks the fused dispatch "
+                    "path; this device runs eager (fuse=False)")
+            rcfg = ReliabilityConfig(map=rmap, inject=inject, **policy)
+            self.engine.reliability = ReliabilityPlane(
+                rcfg, mfr=cfg.mfr, counters=self.engine.counters)
+            # Planning caches were computed without the map.
+            self.engine._best_cfg_cache.clear()
+            self.config = cfg.replace(reliability=rcfg)
+        return rmap
 
     def autotune(self, *args, **kw):
         raise _later_slice("Device.autotune", "the autotune slice")
@@ -147,6 +196,12 @@ class Device:
 
     def reset_counters(self) -> None:
         self.engine.counters.clear()
+
+    @property
+    def reliability(self):
+        """The engine's :class:`~repro_torch.reliability.ReliabilityPlane`
+        (None unless configured or :meth:`calibrate`-attached)."""
+        return self.engine.reliability
 
     @property
     def latency_ms(self) -> float:
@@ -400,6 +455,31 @@ def device(config: EngineConfig | None = None, **overrides) -> Device:
     overrides of the defaults). The default ``device="cuda"`` raises on a
     host without CUDA."""
     return Device(config, **overrides)
+
+
+def as_device(obj) -> Device:
+    """Coerce to a :class:`Device`: passes Devices through and wraps an
+    existing ``PulsarEngine`` (its configuration, reliability plane
+    included, carried into the Device's config)."""
+    if isinstance(obj, Device):
+        return obj
+    if isinstance(obj, PulsarEngine):
+        cfg = EngineConfig(
+            mfr=obj.mfr, width=obj.width, row_bits=obj.row_bits,
+            banks=obj.banks, backend=obj.backend, use_pulsar=obj.use_pulsar,
+            chained=obj.chained, controller=obj.controller, seed=obj.seed,
+            fuse=obj.fuse, flush_threshold=obj.flush_threshold,
+            flush_memory_bytes=obj.flush_memory_bytes,
+            donate_leaves=obj.donate_leaves, success_db=obj.db,
+            leaf_cache_bytes=obj.leaf_cache_bytes,
+            layout=obj.layout, fused_backend=obj.fused_backend,
+            ref_postponing=obj.ref_postponing,
+            reliability=(None if obj.reliability is None
+                         else obj.reliability.config),
+            cmd_buffer_lookahead=obj.cmd_buffer_lookahead,
+            device=str(obj.device))
+        return Device(cfg, _engine=obj)
+    raise TypeError(f"cannot interpret {type(obj).__name__} as a Device")
 
 
 def default_device() -> Device:

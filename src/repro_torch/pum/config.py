@@ -38,9 +38,16 @@ class EngineConfig:
       (staged wire snapshots and their device tensors, keyed by buffer
       pointer + content fingerprint). ``0``/``None`` disables it.
     * ``success_db`` — optional ``SuccessRateDb`` override.
-    * ``controller``, ``reliability``, ``ref_postponing`` and
-      ``cmd_buffer_lookahead`` keep the reference's fields; a controller
-      or a reliability plane raises until its slice is ported.
+    * ``reliability`` — ``None`` (default: every path unchanged), or a
+      ``repro_torch.reliability.ReliabilityConfig`` / calibrated
+      ``ReliabilityMap`` (= config with defaults): the engine plans
+      replication per op from the map and — when the config sets
+      ``inject=True`` — runs the flush-time fault-injection +
+      replica-vote/retry loop on the flush's device (requires
+      ``fuse=True``).
+    * ``controller``, ``ref_postponing`` and ``cmd_buffer_lookahead`` keep
+      the reference's fields; a controller raises until its slice is
+      ported.
     """
 
     mfr: str = "M"

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.convert import program_from_reference
+from repro_torch.core.profiles import MFR_H
 from repro_torch.kernels import fused_program as tfp
 from repro_torch.kernels import ops, ref
 
@@ -65,3 +66,49 @@ def test_engine_on_the_card_matches_host(cuda):
     np.testing.assert_array_equal(prog16(dev, a, b, c).to_numpy(),
                                   prog16(host, a, b, c).to_numpy())
     assert dev.stats == host.stats
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 7, 17, 32])
+@pytest.mark.parametrize("w", [1, 1000, 65536])
+def test_maj_n_kernel_matches_plain(cuda, n, w):
+    x = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
+                      device=cuda)
+    for t in sorted({1, n // 2 + 1, n}):
+        before = ops.LAUNCHES["maj_n"]
+        got = ops.maj_n(x, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.maj_n_fast(x, t))
+        assert torch.equal(got, ref.maj_n(x, t))
+        assert ops.LAUNCHES["maj_n"] == before + 1
+
+
+@pytest.mark.parametrize("p", [None, 12])
+@pytest.mark.parametrize("n,b", [(4, 65536), (32, 65536), (9, 1001)])
+def test_charge_share_kernel_matches_plain(cuda, p, n, b):
+    g = torch.Generator(device=cuda).manual_seed(n * b)
+    shape = (n, b) if p is None else (p, n, b)
+    v = (torch.rand(shape, generator=g, device=cuda) < 0.5).float() * 1.2
+    caps = 20 * (1 + 0.2 * torch.randn((n, b), generator=g, device=cuda))
+    before = ops.LAUNCHES["charge_share"]
+    got = ops.charge_share(v, caps, vdd=MFR_H.vdd, c_bl=MFR_H.bitline_cap_ff)
+    torch.cuda.synchronize()
+    want = ref.charge_share(v, caps, vdd=MFR_H.vdd, c_bl=MFR_H.bitline_cap_ff)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    assert ops.LAUNCHES["charge_share"] == before + 1
+
+
+def test_injected_flush_on_the_card_is_bit_exact(cuda):
+    import repro_torch.pum as pum
+    from test_torch_cost_plane import prog16
+    rng = np.random.default_rng(2)
+    a, b, c = (rng.integers(0, 2**32, 1 << 14, dtype=np.uint64)
+               for _ in range(3))
+    dev = pum.device(width=32, banks=4)
+    before = dict(ops.LAUNCHES)
+    dev.calibrate(inject=True, n_columns=512, flip_scale=1e4, steer=False)
+    assert ops.LAUNCHES["charge_share"] > before.get("charge_share", 0)
+    host = pum.device(width=32, banks=4, fuse=False)
+    np.testing.assert_array_equal(prog16(dev, a, b, c).to_numpy(),
+                                  prog16(host, a, b, c).to_numpy())
+    assert ops.LAUNCHES["maj_n"] > before.get("maj_n", 0)
+    assert dev.counters.get("reliability.injected_bits") > 0

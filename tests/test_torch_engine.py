@@ -194,7 +194,9 @@ def test_default_device_is_cuda_and_raises_without_it():
 def test_later_slices_raise_naming_them():
     with pytest.raises(NotImplementedError, match="controller slice"):
         tpum.device(device="cpu", controller="auto")
-    with pytest.raises(NotImplementedError, match="reliability slice"):
+    # The reliability slice is ported: reliability= validates its input
+    # as the reference does.
+    with pytest.raises(TypeError, match="ReliabilityConfig"):
         tpum.device(device="cpu", reliability=object())
     with pytest.raises(NotImplementedError, match="chip-model slice"):
         tpum.device(device="cpu", backend="sim")

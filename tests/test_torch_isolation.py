@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` (and not
 ``chip_smoke.py``) imports JAX or the reference package, and the port's
-public API imports and flushes with both of them unimportable."""
+public API imports, flushes, calibrates and runs an injected flush with
+both of them unimportable."""
 
 from __future__ import annotations
 
@@ -46,6 +47,15 @@ def test_port_runs_with_jax_and_reference_unimportable():
             y = (x * 3 + 1) // 2
         assert y.to_numpy().tolist() == [(3 * i + 1) // 2 for i in range(64)]
         assert dev.stats.latency_ns > 0
+        # The analog and reliability slice: calibrate, then an injected
+        # flush voted back to the clean values.
+        dev = pum.device(width=16, banks=2, device="cpu")
+        dev.calibrate(inject=True, n_subarrays=2, n_columns=32,
+                      n_patterns=4, flip_scale=1e6, steer=False)
+        x = dev.asarray(np.arange(64, dtype=np.uint64))
+        z = (x + 5).to_numpy()
+        assert z.tolist() == [i + 5 for i in range(64)]
+        assert dev.counters.get("reliability.flushes") == 1
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
