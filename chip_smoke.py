@@ -39,8 +39,30 @@ into ``build/repro_torch/`` and then, failing on the first error:
    non-injecting device, every ``reliability.*`` counter equal to the same
    injected flush run on the CPU, faults injected and corrected, and the
    transpose, fused-program and MAJ-N kernels all launching;
-8. prints one JSON line of per-kernel results, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+8. holds the bit-serial add kernel bit-exact against its plain version at
+   widths 1, 8, 32 and 64 and W = 1001 and 65536 and times it at [32,
+   65536] and [64, 65536] (raw launches rotating buffers past the L2), and
+   the MAJ-N kernel bit-exact at N = 33, 35, 64 and 255;
+9. the chip model at the paper's module geometry (``PAPER_MODULE``: 16
+   banks x 8192 rows x 65536 bitlines, 1 GiB of bank state on the card),
+   mfr H with a perfect-yield decoder: ``PulsarExecutor.maj`` at N_RG =
+   4, 8, 16, 32 (MAJ3) and MAJ5 at 32, Multi-RowInit and Bulk-Write
+   blocks of 16, a 32-bit ``BitSerialAlu.add`` over all 65536 lanes whose
+   sum planes equal ``repro_torch.kernels.bitserial_add`` on the same
+   planes and ``(a + b) mod 2**32``, and 8- and 16-bit ``mul`` and
+   ``div``; ``chip.stats``, ``alu.op_counts`` and bank 0 equal the same
+   sequence on a CPU chip, and the MAJ-N kernel launches once per APA;
+10. cold-boot destruction of one ``PAPER_MODULE`` bank (8192 rows, 64 MiB)
+    three ways (PULSAR, RowClone, FracDRAM): every row overwritten (or left
+    neutral) and each report equal to the CPU run's;
+11. the ``sim`` backend through ``repro_torch.pum.device(mfr="H",
+    backend="sim")`` at its full 2048 lanes, widths 8, 16, 32 and 64, ops
+    ``+ - & | ^ * // %``: results equal NumPy's and ``EngineStats`` and the
+    chip's ``OpStats`` equal the same device on the CPU (the ops whose ALU
+    runs out of its 512-row subarray — ``//`` and ``%`` at 32 bits, ``*``,
+    ``//`` and ``%`` at 64 — raise on both, as in the reference);
+12. prints one JSON line of per-kernel results, the card's name and power
+    limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
 rest of the repository is missing. All data is made from fixed seeds.
@@ -49,7 +71,10 @@ rest of the repository is missing. All data is made from fixed seeds.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import importlib
 import itertools
+import operator
 import json
 import math
 import pathlib
@@ -244,6 +269,155 @@ def random_program(rng, width: int, opcodes, n_inputs: int = 3):
     return width, n_inputs, tuple(ops), tuple(values[n_inputs:][-4:])
 
 
+def host_majority(rows) -> "np.ndarray":
+    """MAJ over uint32 rows by counting each bit on the host (NumPy): the
+    independent check of a charge-sharing result."""
+    import numpy as np
+    stack = np.stack(rows)
+    bits = np.unpackbits(stack.view(np.uint8), axis=1, bitorder="little")
+    maj = (bits.sum(axis=0) >= len(rows) // 2 + 1).astype(np.uint8)
+    return np.packbits(maj, bitorder="little").view(np.uint32)
+
+
+def chip_model_run(device, seed: int):
+    """The chip-model phase on a ``PAPER_MODULE`` chip on ``device`` (mfr
+    H, perfect-yield decoder): MAJ at N_RG 4/8/16/32 and MAJ5 at 32 on
+    subarray 1, Multi-RowInit and Bulk-Write blocks of 16, then on
+    subarray 0 a 32-bit ALU add over all 65536 lanes (its planes held
+    against ``repro_torch.kernels.bitserial_add``) and 8- and 16-bit mul
+    and div. Every result is checked against the host. Returns the chip,
+    the ALU, the executor's reports and the wall seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.core.alu import BitSerialAlu
+    from repro_torch.core.chip import PulsarChip
+    from repro_torch.core.decoder import RowDecoder
+    from repro_torch.core.geometry import PAPER_MODULE
+    from repro_torch.core.profiles import MFR_H
+    from repro_torch.core.pulsar import PulsarExecutor
+    from repro_torch.kernels import bitserial_add
+
+    def host(t):
+        return t.cpu().numpy().view(np.uint32)
+
+    t0 = time.perf_counter()
+    g = PAPER_MODULE
+    chip = PulsarChip(g, MFR_H, seed=0, trace=True, device=device)
+    chip.decoder = RowDecoder(g, MFR_H, None)
+    rng = np.random.default_rng(seed)
+    x = PulsarExecutor(chip, bank=0, subarray=1)
+    base = g.rows_per_subarray
+    srcs = [base + 400 + i for i in range(5)]
+    data = [rng.integers(0, 2**32, g.words_per_row, dtype=np.uint64)
+            .astype(np.uint32) for _ in range(5)]
+    for r, d in zip(srcs, data):
+        chip.write_row(0, r, d)
+    reports = []
+    for i, (m, n_rg) in enumerate(((3, 4), (3, 8), (3, 16), (3, 32),
+                                   (5, 32))):
+        dst = base + 450 + i
+        reports.append(dataclasses.asdict(x.maj(dst, srcs[:m], n_rg)))
+        check(np.array_equal(host(chip.peek(0, dst)),
+                             host_majority(data[:m])),
+              f"{device}: MAJ{m} at N_RG {n_rg} disagrees with the host")
+    for block, want in ((lambda: x.multi_row_init_block(srcs[0], 16),
+                         data[0]),
+                        (lambda: x.bulk_write_block(data[1], 16), data[1])):
+        rows = block()
+        check(len(rows) == 16 and all(
+            np.array_equal(host(chip.peek(0, r)), want) for r in rows),
+            f"{device}: a block of 16 did not take its row")
+    alu = BitSerialAlu(PulsarExecutor(chip, 0, 0), width=32)
+    lanes = g.row_bits
+    a = rng.integers(0, 2**32, lanes, dtype=np.uint64)
+    b = rng.integers(0, 2**32, lanes, dtype=np.uint64)
+    va, vb = alu.load(a), alu.load(b)
+    vs = alu.add(va, vb)
+    planes = [torch.stack([chip.peek(0, r) for r in v.pos_rows])
+              for v in (va, vb, vs)]
+    check(torch.equal(bitserial_add(planes[0], planes[1]), planes[2]),
+          f"{device}: the ALU's add planes differ from bitserial_add's")
+    check(np.array_equal(alu.store(vs), (a + b) & np.uint64(2**32 - 1)),
+          f"{device}: the ALU's 32-bit add differs from (a + b) mod 2**32")
+    for v in (vs, va, vb):
+        alu.free(v)
+    for w, op in ((8, "mul"), (16, "mul"), (8, "div"), (16, "div")):
+        mask = np.uint64((1 << w) - 1)
+        a = rng.integers(0, 1 << w, lanes, dtype=np.uint64)
+        b = rng.integers(1, 1 << w, lanes, dtype=np.uint64)  # b != 0
+        va, vb = alu.load(a, w), alu.load(b, w)
+        if op == "mul":
+            outs = [alu.mul(va, vb)]
+            want = [(a * b) & mask]
+        else:
+            outs = list(alu.div(va, vb))
+            want = [a // b, a % b]
+        for v, wv in zip(outs, want):
+            check(np.array_equal(alu.store(v), wv),
+                  f"{device}: the ALU's {w}-bit {op} differs from NumPy")
+            alu.free(v)
+        alu.free(va)
+        alu.free(vb)
+    if chip.device.type == "cuda":
+        torch.cuda.synchronize()
+    return chip, alu, reports, time.perf_counter() - t0
+
+
+def destruction_run(chip, gen_fill):
+    """Destroy bank 1 of ``chip`` three ways, refilling it with random data
+    (``gen_fill()``) before each. Every row must end as the pattern (or
+    neutral for FracDRAM). Returns {method: (report dict, seconds)}."""
+    import torch
+    from repro_torch.core import destruction
+    from repro_torch.kernels.ref import s32
+    out = {}
+    for method, pattern in (("pulsar", 0x0BADF00D), ("rowclone", 0x5A5A5A5A),
+                            ("fracdram", None)):
+        chip.banks[1].copy_(gen_fill())
+        chip.neutral[1] = False
+        t = time.perf_counter()
+        if method == "pulsar":
+            rep = destruction.destroy_bank_pulsar(chip, 1, pattern=pattern)
+        elif method == "rowclone":
+            rep = destruction.destroy_bank_rowclone(chip, 1, pattern=pattern)
+        else:
+            rep = destruction.destroy_bank_fracdram(chip, 1)
+        if chip.device.type == "cuda":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        if pattern is None:
+            check(bool(chip.neutral[1].all()),
+                  f"{chip.device}: FracDRAM left a row with data")
+        else:
+            check(bool((chip.banks[1] == s32(pattern)).all())
+                  and not chip.neutral[1].any(),
+                  f"{chip.device}: {method} left a row not overwritten")
+        out[method] = (dataclasses.asdict(rep), sec)
+    return out
+
+
+SIM_OPS = (("+", operator.add), ("-", operator.sub), ("&", operator.and_),
+           ("|", operator.or_), ("^", operator.xor), ("*", operator.mul),
+           ("//", operator.floordiv), ("%", operator.mod))
+# The sim ALU allocates from one 512-row subarray; these run out of rows
+# and raise, in the reference as in the port.
+SIM_RAISES = {(32, "//"), (32, "%"), (64, "*"), (64, "//"), (64, "%")}
+
+
+def sim_run(pum, device, width: int, a, b):
+    """Every op of SIM_OPS on one ``backend="sim"`` device; each result an
+    ndarray, or the RuntimeError's text when the op raised."""
+    import numpy as np
+    dev = pum.device(mfr="H", width=width, backend="sim", device=device)
+    out = {}
+    for name, fn in SIM_OPS:
+        try:
+            out[name] = np.asarray(fn(dev.asarray(a), b))
+        except RuntimeError as e:
+            out[name] = str(e)
+    return dev, out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -266,6 +440,7 @@ def main() -> int:
                                          codegen, maj_n, ref)
         from repro_torch.kernels import fused_program as fp
         from repro_torch.reliability import FaultInjector
+        k4 = importlib.import_module("repro_torch.kernels.bitserial_add")
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
               f"from the root of a checkout", file=sys.stderr)
@@ -308,7 +483,7 @@ def main() -> int:
         for w in (8, 16, 32, 33, 64)]
     t0 = time.perf_counter()
     _build.build_many([bit_transpose.build_item(), charge_share.build_item(),
-                       maj_n.build_item()]
+                       maj_n.build_item(), k4.build_item()]
                       + [codegen.build_item(p) for p in
                          list(main_programs.values()) + random_programs])
     build_s = time.perf_counter() - t0
@@ -514,6 +689,67 @@ def main() -> int:
     print(f"K3 at N={k3_n} W={k3_w} (a 3-replica vote of 2M lanes): kernel "
           f"{k3_ms:.4f} ms, plain {k3_plain:.4f} ms, bound {k3_bound:.4f} "
           f"ms ({k3_bytes} bytes)")
+    for n in (33, 35, 64, 255):
+        x = torch.randint(-2**31, 2**31 - 1, (n, 65536), dtype=torch.int32,
+                          device=cuda)
+        x[:, :7] = -1
+        for t in sorted({1, n // 2 + 1, n}):
+            got = maj_n.maj_n_cuda(x, t)
+            want = ref.maj_n_fast(x, t)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            k3_err = max(k3_err, err)
+            check(err == 0, f"maj_n kernel disagrees at N={n} threshold {t}")
+        print(f"K3 maj_n N={n} (past 32 planes): bit-exact at W = 65536, "
+              f"thresholds 1, {n // 2 + 1}, {n}")
+
+    # -- 3d. bit-serial add kernel vs its plain version ------------------ #
+    k4_err = 0
+    for width in (1, 8, 32, 64):
+        for w in (1001, 65536):
+            a = torch.randint(-2**31, 2**31 - 1, (width, w),
+                              dtype=torch.int32, device=cuda)
+            b = torch.randint(-2**31, 2**31 - 1, (width, w),
+                              dtype=torch.int32, device=cuda)
+            a[:, :3] = -1  # carries ripple through every plane
+            got = k4.bitserial_add_cuda(a, b)
+            want = ref.bitserial_add(a, b)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            k4_err = max(k4_err, err)
+            check(err == 0, f"bitserial_add kernel disagrees at width "
+                            f"{width} W={w}")
+        print(f"K4 bitserial_add width {width}: bit-exact at W = 1001, 65536")
+    k4_lib = k4.library()
+    k4_times = {}
+    for width in (32, 64):
+        k4_w = 65536
+
+        def k4_set():
+            a, b = (torch.randint(-2**31, 2**31 - 1, (width, k4_w),
+                                  dtype=torch.int32, device=cuda)
+                    for _ in range(2))
+            return a, b, torch.empty_like(a)
+
+        k4_sets = rotation(k4_set, 3 * width * k4_w * 4)
+        ms = cuda_ms(cycle_launch(
+            k4_lib, k4.ENTRY,
+            [(a.data_ptr(), b.data_ptr(), o.data_ptr(), width, k4_w,
+              _build.stream_of(a)) for a, b, o in k4_sets]), 200)
+        for a, b, o in k4_sets:
+            check(torch.equal(o, ref.bitserial_add(a, b)),
+                  "bitserial_add kernel disagrees in the timing run")
+        a, b, _ = k4_sets[0]
+        plain = cuda_ms(lambda: ref.bitserial_add(a, b), 5, rounds=3)
+        nbytes = 3 * width * k4_w * 4
+        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_o = 5 * width * k4_w / ALU_OPS_PER_S * 1e3
+        k4_times[width] = (ms, plain, max(bound_b, bound_o),
+                           "bytes" if bound_b >= bound_o else "operations")
+        print(f"K4 at [{width}, {k4_w}] ({width}-bit add of 2M lanes): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{max(bound_b, bound_o):.4f} ms ({nbytes} bytes)")
+        del k4_sets, a, b
     del k5_sets, k3_pairs, x, v, c
 
     # -- 4. the main path through the public entry point ----------------- #
@@ -715,7 +951,110 @@ def main() -> int:
         print("  warm flush spans (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in spans.items()))
 
-    # -- 9. results ------------------------------------------------------ #
+    # -- 9. the chip model at the paper's module geometry ---------------- #
+    for k in list(_build.LAUNCHES):
+        _build.LAUNCHES[k] = 0
+    chip, alu, reports, chip_s = chip_model_run("cuda", SEED)
+    chip_launches = dict(_build.LAUNCHES)
+    n_apa = sum(1 for name, _ in chip.stats.trace
+                if name.startswith("apa_maj"))
+    check(chip_launches.get("maj_n", 0) == n_apa > 0,
+          f"chip model: {chip_launches.get('maj_n', 0)} maj_n launches for "
+          f"{n_apa} APAs")
+    check(chip_launches.get("bitserial_add", 0) > 0,
+          "chip model: bitserial_add never launched")
+    host_chip, host_alu, host_reports, host_s = chip_model_run("cpu", SEED)
+    check(dataclasses.asdict(chip.stats) == dataclasses.asdict(host_chip.stats),
+          "chip model: OpStats differ between the card and the CPU")
+    check(alu.op_counts == host_alu.op_counts,
+          "chip model: ALU op_counts differ between the card and the CPU")
+    check(reports == host_reports,
+          "chip model: MAJ reports differ between the card and the CPU")
+    check(torch.equal(chip.banks[0].cpu(), host_chip.banks[0])
+          and np.array_equal(chip.neutral, host_chip.neutral),
+          "chip model: bank 0 differs between the card and the CPU")
+    st = {k: v for k, v in dataclasses.asdict(chip.stats).items()
+          if k != "trace"}
+    print(f"chip model PAPER_MODULE (1 GiB of banks on the card), mfr H: "
+          f"MAJ3 at N_RG 4/8/16/32, MAJ5 at 32, Multi-RowInit and "
+          f"Bulk-Write of 16, ALU add32 over 65536 lanes (= bitserial_add "
+          f"and (a + b) mod 2**32), mul8, mul16, div8, div16: all equal the "
+          f"host; {chip.stats.n_ops} chip commands, {n_apa} APAs; card "
+          f"{chip_s:.2f} s, CPU {host_s:.2f} s; OpStats, op_counts, reports "
+          f"and bank 0 equal the CPU run; launches {chip_launches}")
+    print(f"  OpStats: {st}")
+    print(f"  op_counts: {alu.op_counts}")
+
+    # -- 10. cold-boot destruction of one PAPER_MODULE bank -------------- #
+    bank_shape = tuple(chip.banks.shape[1:])
+    gen_cuda = torch.Generator(device=cuda).manual_seed(SEED)
+    gen_cpu = torch.Generator().manual_seed(SEED)
+    card = destruction_run(chip, lambda: torch.randint(
+        -2**31, 2**31 - 1, bank_shape, dtype=torch.int32, device=cuda,
+        generator=gen_cuda))
+    on_cpu = destruction_run(host_chip, lambda: torch.randint(
+        -2**31, 2**31 - 1, bank_shape, dtype=torch.int32,
+        generator=gen_cpu))
+    for method, (rep, sec) in card.items():
+        check(rep == on_cpu[method][0],
+              f"destruction {method}: report differs from the CPU run")
+        print(f"destruction {method} of bank 1 ({bank_shape[0]} rows): "
+              f"{rep}, card {sec:.2f} s, CPU {on_cpu[method][1]:.2f} s, "
+              f"report equal to the CPU run")
+    del chip, host_chip, alu, host_alu
+
+    # -- 11. the sim backend through pum.device(backend="sim") ----------- #
+    for k in list(_build.LAUNCHES):
+        _build.LAUNCHES[k] = 0
+    sim_t0 = time.perf_counter()
+    sim_wall = {}
+    for width in (8, 16, 32, 64):
+        mask = np.uint64(2**64 - 1 if width == 64 else (1 << width) - 1)
+        lanes = min(pum.EngineConfig().row_bits, 2048)  # one sim chip row
+        a = rng.integers(0, int(mask), lanes, dtype=np.uint64, endpoint=True)
+        b = rng.integers(0, int(mask), lanes, dtype=np.uint64, endpoint=True)
+        b[::7] = 0  # zero-divisor lanes
+        bs = np.maximum(b, 1)
+        want = {"+": (a + b) & mask, "-": (a - b) & mask, "&": a & b,
+                "|": a | b, "^": a ^ b, "*": (a * b) & mask,
+                "//": np.where(b == 0, 0, a // bs),
+                "%": np.where(b == 0, 0, a % bs)}
+        t = time.perf_counter()
+        dev, got = sim_run(pum, "cuda", width, a, b)
+        sim_wall[width] = time.perf_counter() - t
+        check(dev.engine._alu.chip.device.type == "cuda",
+              "sim: the chip is not on the card")
+        host, got_cpu = sim_run(pum, "cpu", width, a, b)
+        for name, _ in SIM_OPS:
+            if (width, name) in SIM_RAISES:
+                check(isinstance(got[name], str) and "out of rows" in got[name]
+                      and got_cpu[name] == got[name],
+                      f"sim width {width} {name}: expected the reference's "
+                      f"out-of-rows error on both, got {got[name]!r}")
+            else:
+                check(isinstance(got[name], np.ndarray)
+                      and np.array_equal(got[name], want[name])
+                      and np.array_equal(got_cpu[name], want[name]),
+                      f"sim width {width} {name}: differs from NumPy")
+        check(dev.stats.as_dict() == host.stats.as_dict(),
+              f"sim width {width}: EngineStats differ from the CPU device")
+        check(dataclasses.asdict(dev.engine._alu.chip.stats)
+              == dataclasses.asdict(host.engine._alu.chip.stats),
+              f"sim width {width}: chip OpStats differ from the CPU device")
+        print(f"sim backend width {width} ({lanes} lanes): "
+              + ", ".join(n for n, _ in SIM_OPS if (width, n) not in SIM_RAISES)
+              + " equal NumPy; "
+              + (", ".join(n for n, _ in SIM_OPS if (width, n) in SIM_RAISES)
+                 + " run out of rows on both; " if width >= 32 else "")
+              + f"EngineStats equal the CPU device; card "
+              f"{sim_wall[width]:.2f} s, {dev.engine._alu.chip.stats.n_ops} "
+              f"chip commands")
+    sim_launches = dict(_build.LAUNCHES)
+    check(sim_launches.get("maj_n", 0) > 0, "sim: maj_n never launched")
+    print(f"sim backend: {time.perf_counter() - sim_t0:.1f} s (card and CPU), "
+          f"launches {sim_launches}")
+
+    # -- 12. results ----------------------------------------------------- #
     results["kernels"] = [
         {"name": "bit_transpose32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bit_transpose.cu",
@@ -738,7 +1077,18 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": "bytes" if k3_bound_b >= k3_bound_o else "operations",
          "library_ms": None,
+         "launches_chip_model": chip_launches["maj_n"],
+         "launches_sim": sim_launches["maj_n"],
          "build_s": _build.BUILDS[maj_n.build_item()[0]]["seconds"]},
+        {"name": "bitserial_add", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bitserial_add.cu",
+         "replaces": "src/repro/kernels/bitserial_add.py:32",
+         "launches": chip_launches["bitserial_add"], "max_abs_err": k4_err,
+         "ms": k4_times[32][0], "plain_ms": k4_times[32][1],
+         "bound_ms": k4_times[32][2], "bound_by": k4_times[32][3],
+         "library_ms": None, "shape": [32, 65536],
+         "ms_64": k4_times[64][0], "bound_ms_64": k4_times[64][2],
+         "build_s": _build.BUILDS[k4.build_item()[0]]["seconds"]},
         {"name": "charge_share", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/charge_share.cu",
          "replaces": "src/repro/kernels/charge_share.py:33",

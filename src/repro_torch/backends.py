@@ -5,7 +5,9 @@ The port's copy of ``repro.backends``. Every evaluator is a registered
 
 * the engine resolves its ``backend=`` name to an **eager dataplane**
   builder (capability ``"eager"``); ``"fast"`` computes on packed NumPy
-  words on the host;
+  words on the host, ``"sim"`` on the bit-exact chip model (a small
+  simulated DRAM region whose bank payload lies on the engine's
+  ``torch.device``, with the dual-rail bit-serial ALU on top);
 * the fused pipeline resolves a :class:`FusedProgram` to a **fused
   evaluator** (capability ``"fused"``) by :func:`select_backend` — the
   highest-priority backend available *on the requesting device* whose
@@ -30,8 +32,6 @@ from typing import Any, Callable
 
 # Reference backends that later slices of the port bring.
 _LATER_SLICES = {
-    "sim": "the chip-model slice (core/chip.py, alu.py and the sim "
-           "dataplane)",
     "shard-words": "the LM/distributed slice (multi-GPU word-axis "
                    "pipeline)",
 }
@@ -51,9 +51,11 @@ class BackendSpec:
 
     ``builder`` signature depends on capability:
 
-    * ``"eager"`` backends: ``builder(engine) -> None`` — called at
-      ``PulsarEngine`` construction; ``None`` selects the packed-NumPy
-      word dataplane.
+    * ``"eager"`` backends: ``builder(engine) -> None | alu`` — called
+      at ``PulsarEngine`` construction; ``None`` selects the packed-NumPy
+      word dataplane, an ALU-protocol object (``words``, ``load``,
+      ``store``, ``free`` and the ops, as ``BitSerialAlu`` has them) routes
+      the engine's eager binary ops through it.
     * ``"fused"`` backends: ``builder(program, donate=...)
       -> fn(*leaves) -> tuple(outs)`` — called (and cached) per program
       structure by ``fused_program.get_pipeline``. Leaves and outputs are
@@ -85,7 +87,8 @@ def register_backend(name: str, builder: Callable[..., Any], *,
                      layouts=(32,)) -> BackendSpec:
     """Register (or replace) a backend under ``name`` and return its spec.
 
-    The built-in names are ``fast``, ``words-torch``, ``vertical-cuda``,
+    The built-in names are ``fast``, ``sim``, ``words-torch``,
+    ``vertical-cuda``,
     ``ref-vertical`` and their ``-64`` layout variants."""
     spec = BackendSpec(name=name, builder=builder,
                        capabilities=frozenset(capabilities),
@@ -214,6 +217,24 @@ def _build_fast_dataplane(engine) -> None:
     return None
 
 
+def _build_sim_dataplane(engine):
+    """Bit-exact chip-model dataplane: a small simulated DRAM region on the
+    engine's device with the dual-rail bit-serial ALU on top (cycle-exact
+    command accounting)."""
+    from repro_torch.core.alu import BitSerialAlu
+    from repro_torch.core.chip import PulsarChip
+    from repro_torch.core.decoder import RowDecoder
+    from repro_torch.core.geometry import DramGeometry
+    from repro_torch.core.pulsar import PulsarExecutor
+    geom = DramGeometry(row_bits=min(engine.row_bits, 2048),
+                        rows_per_subarray=512, subarrays_per_bank=2,
+                        banks=2)
+    chip = PulsarChip(geom, engine.profile, seed=engine.seed,
+                      device=engine.device)
+    chip.decoder = RowDecoder(geom, engine.profile, None)  # perfect yield
+    return BitSerialAlu(PulsarExecutor(chip, 0, 0), width=engine.width)
+
+
 def _build_words_pipeline(program, donate: bool = False):
     from repro_torch.kernels import fused_program
     return fused_program.build_words_pipeline(program, donate=donate)
@@ -241,6 +262,9 @@ def on_cuda(device) -> bool:
 
 register_backend("fast", _build_fast_dataplane,
                  capabilities=("eager",), max_width=64, priority=10,
+                 layouts=(32, 64))
+register_backend("sim", _build_sim_dataplane,
+                 capabilities=("eager", "sim"), max_width=64,
                  layouts=(32, 64))
 register_backend("words-torch", _build_words_pipeline,
                  capabilities=("fused",), max_width=32, priority=10,

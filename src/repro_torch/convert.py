@@ -1,16 +1,22 @@
 """State carried from the reference into the port.
 
-The reference's state is programs, success points, reliability maps and
-leaf data. These helpers take plain Python and NumPy values (never
-``repro`` objects), so tests can feed the same program, the same
-characterization data and the same calibrated chip to both packages.
+The reference's state is programs, success points, reliability maps,
+chip-model state and leaf data. These helpers take plain Python and NumPy
+values (never ``repro`` objects), so tests can feed the same program, the
+same characterization data, the same calibrated chip and the same
+simulated DRAM to both packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.charact import SuccessRateDb
+from repro_torch.core.chip import OpStats, PulsarChip
+from repro_torch.core.decoder import RowDecoder
+from repro_torch.core.geometry import DramGeometry
+from repro_torch.core.profiles import PROFILES
 from repro_torch.kernels.fused_program import FusedOp, FusedProgram
 from repro_torch.kernels.plane_layout import get_layout
 from repro_torch.reliability.calibration import ReliabilityMap
@@ -70,3 +76,36 @@ def reliability_map_from_reference(*, mfr, seed, n_subarrays, n_columns,
         success=np.array(success, np.float64),
         flip_p=np.array(flip_p, np.float32),
         bank_scale=np.array(bank_scale, np.float64))
+
+
+def chip_from_reference(*, geometry, profile: str, banks, neutral,
+                        yield_mask, seed: int = 0, stats=None,
+                        device="cuda") -> PulsarChip:
+    """The port's :class:`PulsarChip` on ``device`` from a reference chip's
+    plain state: ``geometry`` as a dict of ``DramGeometry`` fields,
+    ``profile`` the manufacturer name (``"H"``, ``"M"``, ``"S"``),
+    ``banks`` the payload ``[banks, rows_per_bank, words_per_row]`` as
+    NumPy uint32, ``neutral`` the per-row flags, ``yield_mask`` the
+    decoder's ``(subarrays, groups)`` mask or ``None`` (perfect yield) and
+    ``stats`` an optional dict of ``OpStats`` fields to continue from. The
+    arrays are copied, so the two chips share no memory."""
+    geom = DramGeometry(**{k: (tuple(v) if k == "predecoder_widths" else v)
+                           for k, v in dict(geometry).items()})
+    prof = PROFILES[str(profile)]
+    chip = PulsarChip(geom, prof, seed=int(seed), device=device)
+    payload = np.ascontiguousarray(np.asarray(banks, np.uint32))
+    flags = np.asarray(neutral, bool)
+    if payload.shape != tuple(chip.banks.shape) \
+            or flags.shape != chip.neutral.shape:
+        raise ValueError(
+            f"state of shape {payload.shape} / {flags.shape} does not fit "
+            f"the geometry {tuple(chip.banks.shape)}")
+    chip.banks.copy_(torch.from_numpy(payload.view(np.int32)))
+    chip.neutral[...] = flags
+    chip.decoder = RowDecoder(
+        geom, prof, None if yield_mask is None
+        else np.array(yield_mask, bool))
+    if stats is not None:
+        fields = {k: v for k, v in dict(stats).items() if k != "trace"}
+        chip.stats = OpStats(**fields)
+    return chip

@@ -5,6 +5,8 @@ coupled planes:
 
   * dataplane: bit-exact results. ``backend="fast"`` computes each op on
     packed NumPy uint64 words on the host (the eager mode, ``fuse=False``);
+    ``backend="sim"`` runs the eager binary ops on the chip model's
+    bit-serial ALU, its bank payload on the engine's device (per-op only);
     with ``fuse=True`` (the ``pum`` default) ops record into a lazy op
     graph and ``flush()`` runs the whole graph as ONE fused pipeline on
     the engine's ``torch.device`` — on a CUDA device the hand-written
@@ -33,9 +35,8 @@ and the lanes re-join at materialization.
 
 Later slices bring the reference's other paths; asking for one raises
 ``NotImplementedError`` naming its slice: ``controller=`` (the controller
-slice), ``backend="sim"`` (the chip-model slice), and, on ``pum.Device``,
-``flush_async``/``client``/``capture`` (the concurrency slice) and
-``autotune`` (the autotune slice).
+slice) and, on ``pum.Device``, ``flush_async``/``client``/``capture`` (the
+concurrency slice) and ``autotune`` (the autotune slice).
 """
 
 from __future__ import annotations
@@ -512,9 +513,16 @@ class PulsarEngine:
         if not spec.available(self.device):
             raise ValueError(f"backend {backend!r} is registered but not "
                              f"available on {self.device}")
-        if spec.builder(self) is not None:
-            raise ValueError(f"backend {backend!r}: the port's engine runs "
-                             f"only the word dataplane (builder -> None)")
+        # The builder returns None for the packed-NumPy word dataplane or an
+        # ALU-protocol object (the sim backend's BitSerialAlu) to route the
+        # eager binary ops through.
+        self._alu = spec.builder(self)
+        if fuse and self._alu is not None:
+            raise ValueError(
+                f"fuse=True requires an eager word-dataplane backend "
+                f"(builder returns None, e.g. 'fast'); backend "
+                f"{backend!r} routes ops through an ALU and stays "
+                f"per-op")
         if fused_backend is not None:
             fspec = get_backend(fused_backend)
             if "fused" not in fspec.capabilities:
@@ -1036,7 +1044,7 @@ class PulsarEngine:
             if opcode in self._PLANEWISE and self._use_raw((a, b)):
                 return self._record(opcode, (a, b), raw=True)
             return self._record(opcode, (a, b))
-        return np_fn(self._force(a), self._force(b))
+        return self._run2(opcode, self._force(a), self._force(b), np_fn)
 
     def _and(self, a, b):
         return self._binary("and2", "and", a, b, lambda x, y: x & y)
@@ -1069,8 +1077,9 @@ class PulsarEngine:
                                 internal=True)
             return self._record("fst" if which == "div" else "snd", (pair,))
         with np.errstate(divide="ignore", invalid="ignore"):
-            x, y = self._force(a), self._force(b)
-            return x // y if which == "div" else x % y
+            fn = (lambda x, y: x // y) if which == "div" \
+                else (lambda x, y: x % y)
+            return self._run2(which, self._force(a), self._force(b), fn)
 
     def _div(self, a, b):
         return self._divpart(a, b, "div")
@@ -1090,6 +1099,21 @@ class PulsarEngine:
             return q, r
         with np.errstate(divide="ignore", invalid="ignore"):
             af, bf = self._force(a), self._force(b)
+            if self._alu is not None and af.size <= self._alu.words * 32:
+                # One restoring-division pass on the sim ALU yields both.
+                # The ALU's divider assumes nonzero divisors; mask those
+                # lanes to 0 to keep the engine-wide x//0 == x%0 == 0
+                # contract (unsigned NumPy semantics) on every backend.
+                va, vb = self._alu_load2(af, bf)
+                vq, vr = self._alu.div(va, vb)
+                zero = bf == 0
+                out = (np.where(zero, np.uint64(0),
+                                self._alu_store(vq, af)),
+                       np.where(zero, np.uint64(0),
+                                self._alu_store(vr, af)))
+                for v in (vq, vr, va, vb):
+                    self._alu.free(v)  # return the subarray rows
+                return out
             return (af // bf, af % bf)
 
     def _less_than(self, a, b):
@@ -1123,6 +1147,42 @@ class PulsarEngine:
             return (a != 0).astype(np.uint64)
         pc = _vec_popcount(a)
         return pc & np.uint64(1)
+
+    def _alu_load2(self, a: np.ndarray, b: np.ndarray):
+        """Both operands into sim-ALU vertical registers (one row budget:
+        ``alu.words * 32`` lanes — callers guard the size)."""
+        alu = self._alu
+        return (alu.load(a.ravel()[: alu.words * 32]),
+                alu.load(b.ravel()[: alu.words * 32]))
+
+    def _alu_store(self, vec, like: np.ndarray) -> np.ndarray:
+        """Read a sim-ALU register back into ``like``'s size and shape."""
+        return self._alu.store(vec)[: like.size].reshape(like.shape)
+
+    def _run2(self, name, a, b, np_fn):
+        """An eager binary op: on the sim ALU when one is attached and the
+        operands fit one chip row (``alu.words * 32`` lanes), else — as in
+        the reference — on the host's NumPy words."""
+        if self._alu is not None and a.size <= self._alu.words * 32:
+            alu = self._alu
+            va, vb = self._alu_load2(a, b)
+            fn = {"and": alu.and_, "or": alu.or_, "xor": alu.xor,
+                  "add": alu.add, "sub": alu.sub, "mul": alu.mul}.get(name)
+            if fn is None and name in ("div", "mod"):
+                # Zero-divisor lanes yield 0 on every backend (the ALU's
+                # restoring divider assumes b != 0 elementwise).
+                q, r = alu.div(va, vb)
+                out = self._alu_store(q if name == "div" else r, a)
+                out = np.where(b == 0, np.uint64(0), out)
+                vecs = (q, r, va, vb)
+            else:
+                res = fn(va, vb)
+                out = self._alu_store(res, a)
+                vecs = (res, va, vb)
+            for v in vecs:  # return the subarray rows to the pool: the
+                alu.free(v)  # engine owns no Vec past the op
+            return out
+        return np_fn(a, b)
 
     # ------------------------------------------------------------------ #
 

@@ -7,8 +7,10 @@
 // port is the reliability plane's replica vote (repro_torch/reliability/
 // faults.py::majority_vote): the majority, disagreement and weak-margin
 // planes over R fault-injected replicas are MAJ-R at different thresholds.
-// Input [N <= 32, W] 32-bit words row-major, output [W]. The plain version is
-// repro_torch/kernels/ref.py::maj_n_fast (and ref.maj_n, bit-exact).
+// The chip model (repro_torch/core/chip.py::PulsarChip.apa_maj) votes with
+// it too: each charge-sharing APA is MAJ over the non-neutral activated rows.
+// Input [N <= 65535, W] 32-bit words row-major, output [W]. The plain version
+// is repro_torch/kernels/ref.py::maj_n_fast (and ref.maj_n, bit-exact).
 //
 // Algorithm (the Pallas kernel's): a K-bit bit-sliced counter per bit lane,
 // K = bit_length(N), starts at 2^K - threshold; adding the N planes with a
@@ -17,7 +19,7 @@
 // What bounds it on this card: device-memory bytes, (N + 1) * W * 4 (each
 // plane word is read once, about 2K + 1 integer ops per word per plane, far
 // under the op rate). Design: one thread per word column; K is a template
-// parameter, so the K counter planes are registers with compile-time
+// parameter (1..16, so N reaches 65535), so the K counter planes are registers with compile-time
 // indices; threads of a warp read 32 neighbouring words of each plane (one
 // 128-byte transaction per plane). A ragged W needs no padding.
 
@@ -59,11 +61,11 @@ void launch(const void* x, void* out, int n, long long w, uint32_t init,
 
 }  // namespace
 
-// n in [1, 32], threshold in [1, n]; anything else returns
+// n in [1, 65535], threshold in [1, n]; anything else returns
 // cudaErrorInvalidValue without launching.
 extern "C" int maj_n_launch(const void* x, void* out, int n, long long w,
                             int threshold, void* stream) {
-  if (n < 1 || n > 32 || threshold < 1 || threshold > n)
+  if (n < 1 || n > 65535 || threshold < 1 || threshold > n)
     return (int)cudaErrorInvalidValue;
   int k = 0;
   while ((n >> k) != 0) ++k;  // bit_length(n)
@@ -76,7 +78,17 @@ extern "C" int maj_n_launch(const void* x, void* out, int n, long long w,
       case 3: launch<3>(x, out, n, w, init, s); break;
       case 4: launch<4>(x, out, n, w, init, s); break;
       case 5: launch<5>(x, out, n, w, init, s); break;
-      default: launch<6>(x, out, n, w, init, s); break;
+      case 6: launch<6>(x, out, n, w, init, s); break;
+      case 7: launch<7>(x, out, n, w, init, s); break;
+      case 8: launch<8>(x, out, n, w, init, s); break;
+      case 9: launch<9>(x, out, n, w, init, s); break;
+      case 10: launch<10>(x, out, n, w, init, s); break;
+      case 11: launch<11>(x, out, n, w, init, s); break;
+      case 12: launch<12>(x, out, n, w, init, s); break;
+      case 13: launch<13>(x, out, n, w, init, s); break;
+      case 14: launch<14>(x, out, n, w, init, s); break;
+      case 15: launch<15>(x, out, n, w, init, s); break;
+      default: launch<16>(x, out, n, w, init, s); break;
     }
   }
   return (int)cudaGetLastError();

@@ -3,7 +3,9 @@
 Out bit = (number of the N planes with that bit set >= ``threshold``). In
 the port it carries the reliability plane's replica vote
 (``reliability/faults.py``): the majority, disagreement and weak-margin
-planes over R fault-injected replicas are MAJ-R at different thresholds.
+planes over R fault-injected replicas are MAJ-R at different thresholds
+(any R the retry policy escalates to). The chip model's charge-sharing APA
+(``core/chip.py::majority_bits``) is MAJ over the activated data rows.
 Replaces the TPU kernel ``repro/kernels/maj_n.py::maj_n``.
 
 * :func:`maj_n_cuda` launches the hand-written CUDA kernel
@@ -30,7 +32,8 @@ NAME = "maj_n"
 ENTRY = "maj_n_launch"
 ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
-MAX_PLANES = 32
+# K = bit_length(N) counter planes, a template parameter of 1..16.
+MAX_PLANES = (1 << 16) - 1
 
 maj_n_plain = ref.maj_n_fast
 
@@ -48,7 +51,8 @@ def library():
 
 
 def maj_n_cuda(x: torch.Tensor, threshold: int) -> torch.Tensor:
-    """x: contiguous [N, W] int32 CUDA tensor, N in [1, 32] -> [W] int32."""
+    """x: contiguous [N, W] int32 CUDA tensor, N in [1, MAX_PLANES] ->
+    [W] int32."""
     if not x.is_cuda:
         raise ValueError("maj_n_cuda takes a CUDA tensor")
     if x.dtype != torch.int32 or x.dim() != 2:

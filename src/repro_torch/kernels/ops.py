@@ -10,8 +10,9 @@ Layout conventions: *horizontal* operands are flat packed words (element
 i = word i); *vertical* operands are bit-plane stacks ``[width, W]`` where
 plane j holds bit j of every element (``bit_transpose32`` converts 32x32
 tiles between the two). ``run_fused_program`` operates on vertical planes;
-``maj_n`` on any stack of packed 32-bit planes; ``charge_share`` on
-float32 cell fields ``[..., N rows, B bitlines]``.
+``maj_n`` on any stack of packed 32-bit planes; ``bitserial_add`` on two
+plane stacks ``[width, W]`` (values unsigned modulo 2**width);
+``charge_share`` on float32 cell fields ``[..., N rows, B bitlines]``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401 (re-export)
 from repro_torch.kernels.bit_transpose import (bit_transpose32_cuda,
                                                bit_transpose32_plain)
+from repro_torch.kernels.bitserial_add import (bitserial_add_cuda,
+                                               bitserial_add_plain)
 from repro_torch.kernels.charge_share import (charge_share_cuda,
                                               charge_share_plain)
 from repro_torch.kernels.fused_program import (FusedProgram,
@@ -51,6 +54,14 @@ def maj_n(x: torch.Tensor, threshold: int) -> torch.Tensor:
     if x.is_cuda:
         return maj_n_cuda(x, threshold)
     return maj_n_plain(x, threshold)
+
+
+def bitserial_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Vertical ripple add: a, b [width, W] int32 plane stacks -> [width,
+    W] sum planes (carry = MAJ3(a, b, carry), carry-out dropped)."""
+    if a.is_cuda:
+        return bitserial_add_cuda(a, b)
+    return bitserial_add_plain(a, b)
 
 
 def charge_share(v: torch.Tensor, caps: torch.Tensor, *, vdd: float,

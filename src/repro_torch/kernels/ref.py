@@ -10,7 +10,9 @@
 * :func:`maj_n` / :func:`maj_n_fast` — the plain versions of the MAJ-N
   kernel (``kernels/maj_n.py``);
 * :func:`charge_share` — the plain version of the charge-sharing kernel
-  (``kernels/charge_share.py``).
+  (``kernels/charge_share.py``);
+* :func:`bitserial_add` — the plain version of the bit-serial add kernel
+  (``kernels/bitserial_add.py``), the ripple add over plane stacks.
 
 Lanes and planes are int32 tensors carrying unsigned 32-bit words
 bit-for-bit (torch has no CPU ``>>`` on ``uint32``), so every logical right
@@ -148,6 +150,19 @@ def plane_add(a: list, b: list) -> list:
         s, carry = _full_add(x, y, carry)
         out.append(s)
     return out
+
+
+def bitserial_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Vertical-layout ripple add: a, b [width, W] int32 bit-planes ->
+    [width, W] sum planes modulo 2^width. The carry runs across planes:
+    the PuM full-adder loop (``core/alu.py``) fused into one pass, carry =
+    MAJ3(a, b, carry), the paper's own carry identity."""
+    if a.shape != b.shape:
+        raise ValueError("shape mismatch")
+    if a.dim() != 2 or a.shape[0] < 1:
+        raise ValueError(f"expected [width >= 1, W] planes, got "
+                         f"{tuple(a.shape)}")
+    return torch.stack(plane_add(list(a), list(b)))
 
 
 def plane_sub(a: list, b: list) -> tuple[list, object]:

@@ -54,8 +54,10 @@ class Device:
             config = EngineConfig(**overrides)
         elif overrides:
             config = config.replace(**overrides)
-        if config.backend == "sim":
-            raise _later_slice("the sim backend", "the chip-model slice")
+        # The sim backend is per-op by construction (the chip model has no
+        # word dataplane to fuse over).
+        if config.backend == "sim" and config.fuse:
+            config = config.replace(fuse=False)
         # When NO registered fused evaluator supports this width/layout on
         # the device (a pinned fused_backend takes precedence): per-op
         # eager execution instead of refusing to build.

@@ -27,7 +27,9 @@ class EngineConfig:
       on: ``"cuda"`` runs the hand-written kernels (``vertical-cuda``),
       ``"cpu"`` the word-domain evaluator (``words-torch``).
     * ``backend`` — eager-dataplane name resolved through the
-      ``repro_torch.backends`` registry (``"fast"``: packed NumPy words).
+      ``repro_torch.backends`` registry (``"fast"``: packed NumPy words;
+      ``"sim"``: the chip model's bit-serial ALU on ``device``, per-op, so
+      a sim device never fuses).
     * ``layout`` — plane-layout word bits (32 or 64, or a ``PlaneLayout``);
       ``None`` derives the narrowest layout holding ``width``.
     * ``fused_backend`` — pin a registered fused evaluator by name

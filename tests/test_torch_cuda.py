@@ -112,3 +112,88 @@ def test_injected_flush_on_the_card_is_bit_exact(cuda):
                                   prog16(host, a, b, c).to_numpy())
     assert ops.LAUNCHES["maj_n"] > before.get("maj_n", 0)
     assert dev.counters.get("reliability.injected_bits") > 0
+
+
+@pytest.mark.parametrize("n", [33, 35, 64, 255])
+def test_maj_n_kernel_past_32_planes(cuda, n):
+    """K3's counter takes K = bit_length(N) up to 16: votes of any R the
+    reliability policy escalates to."""
+    x = torch.randint(-2**31, 2**31 - 1, (n, 4099), dtype=torch.int32,
+                      device=cuda)
+    x[:, :5] = -1
+    for t in sorted({1, n // 2 + 1, n}):
+        got = ops.maj_n(x, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.maj_n_fast(x, t))
+
+
+@pytest.mark.parametrize("width", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("w", [1, 1001, 65536])
+def test_bitserial_add_kernel_matches_plain(cuda, width, w):
+    a = torch.randint(-2**31, 2**31 - 1, (width, w), dtype=torch.int32,
+                      device=cuda)
+    b = torch.randint(-2**31, 2**31 - 1, (width, w), dtype=torch.int32,
+                      device=cuda)
+    a[:, :1] = -1  # a carry through every plane
+    before = ops.LAUNCHES["bitserial_add"]
+    got = ops.bitserial_add(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.bitserial_add(a, b))
+    assert ops.LAUNCHES["bitserial_add"] == before + 1
+
+
+def _alu_add_on(device):
+    from repro_torch.core.alu import BitSerialAlu
+    from repro_torch.core.chip import PulsarChip
+    from repro_torch.core.decoder import RowDecoder
+    from repro_torch.core.geometry import DramGeometry
+    from repro_torch.core.pulsar import PulsarExecutor
+    geom = DramGeometry(row_bits=4096, rows_per_subarray=512,
+                        subarrays_per_bank=2, banks=1)
+    chip = PulsarChip(geom, MFR_H, seed=0, trace=True, device=device)
+    chip.decoder = RowDecoder(geom, MFR_H, None)
+    alu = BitSerialAlu(PulsarExecutor(chip, 0, 0), width=16)
+    rng = np.random.default_rng(3)
+    a, b = (rng.integers(0, 1 << 16, 4096, dtype=np.uint64) for _ in range(2))
+    va, vb = alu.load(a), alu.load(b)
+    s = alu.add(va, vb)
+    np.testing.assert_array_equal(alu.store(s), (a + b) & 0xFFFF)
+    return chip, alu, (va, vb, s)
+
+
+def test_chip_on_the_card_matches_cpu_after_alu_add(cuda):
+    import dataclasses
+    before = ops.LAUNCHES["maj_n"]
+    chip, alu, vecs = _alu_add_on("cuda")
+    n_apa = sum(1 for name, _ in chip.stats.trace
+                if name.startswith("apa_maj"))
+    assert ops.LAUNCHES["maj_n"] - before == n_apa > 0
+    host, host_alu, _ = _alu_add_on("cpu")
+    assert torch.equal(chip.banks.cpu(), host.banks)
+    np.testing.assert_array_equal(chip.neutral, host.neutral)
+    assert dataclasses.asdict(chip.stats) == dataclasses.asdict(host.stats)
+    assert alu.op_counts == host_alu.op_counts
+    va, vb, s = (torch.stack([chip.peek(0, r) for r in v.pos_rows])
+                 for v in vecs)
+    assert torch.equal(ops.bitserial_add(va, vb), s)
+
+
+def test_sim_device_on_the_card_matches_cpu(cuda):
+    import repro_torch.pum as pum
+    rng = np.random.default_rng(4)
+    dev = pum.device(mfr="H", width=8, backend="sim")
+    host = pum.device(mfr="H", width=8, backend="sim", device="cpu")
+    assert dev.engine._alu.chip.device.type == "cuda"
+    n = dev.engine._alu.words * 32
+    a, b = (rng.integers(0, 256, n, dtype=np.uint64) for _ in range(2))
+    b[::3] = 0
+    outs = []
+    for d in (dev, host):
+        x = d.asarray(a)
+        outs.append([np.asarray(op) for op in (x + b, x * b, x // b, x % b,
+                                               x ^ b)])
+    for g, w in zip(*outs):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(outs[0][2],
+                                  np.where(b == 0, 0, a // np.maximum(b, 1)))
+    assert dev.stats.as_dict() == host.stats.as_dict()

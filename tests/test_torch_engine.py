@@ -2,10 +2,14 @@
 
 Every case runs the same seeded operands through ``repro.pum`` (fused and
 eager) and ``repro_torch.pum`` with ``device="cpu"``: outputs are
-bit-exact and ``EngineStats`` identical.
+bit-exact and ``EngineStats`` identical. The ``sim`` backend (the chip
+model's bit-serial ALU) is held the same way, with the chip's ``OpStats``
+and the ALU's ``op_counts`` equal too.
 """
 
 from __future__ import annotations
+
+import operator
 
 import numpy as np
 import pytest
@@ -198,8 +202,8 @@ def test_later_slices_raise_naming_them():
     # as the reference does.
     with pytest.raises(TypeError, match="ReliabilityConfig"):
         tpum.device(device="cpu", reliability=object())
-    with pytest.raises(NotImplementedError, match="chip-model slice"):
-        tpum.device(device="cpu", backend="sim")
+    # The chip-model slice is ported: backend="sim" builds (eager, per op).
+    assert not tpum.device(device="cpu", backend="sim").config.fuse
     with pytest.raises(NotImplementedError, match="distributed slice"):
         tpum.device(device="cpu", fused_backend="shard-words")
     dev = tpum.device(device="cpu")
@@ -209,3 +213,70 @@ def test_later_slices_raise_naming_them():
             call()
     with pytest.raises(NotImplementedError, match="autotune slice"):
         dev.autotune()
+
+
+SIM_OPS = {"+": operator.add, "-": operator.sub, "*": operator.mul,
+           "//": operator.floordiv, "%": operator.mod, "&": operator.and_,
+           "|": operator.or_, "^": operator.xor}
+# Per width, the ops of the sim device in order. The ALU allocates from one
+# 512-row subarray: in the reference a 32-bit divider and a 64-bit
+# multiplier run out of rows and raise; the port raises at the same chip
+# command (SIM_RAISES).
+SIM_CASES = {8: "+ - * // % & | ^ divmod", 16: "+ - * // % & | ^",
+             32: "+ - & | ^ //", 64: "+ - & | ^ *"}
+SIM_RAISES = {(32, "//"), (64, "*")}
+
+
+@pytest.mark.parametrize("width", sorted(SIM_CASES))
+def test_sim_backend_matches_reference(width):
+    """``pum.device(backend="sim")``: eager, per op on the chip model, with
+    zero-divisor lanes yielding 0 (the engine-wide contract)."""
+    import dataclasses
+    devs = [rpum.device(mfr="H", width=width, backend="sim", row_bits=256),
+            tpum.device(mfr="H", width=width, backend="sim", row_bits=256,
+                        device="cpu")]
+    assert not devs[1].config.fuse
+    n = devs[1].engine._alu.words * 32
+    a, b = _ops(width, n, width)[:2]
+    b[::5] = 0
+    for op in SIM_CASES[width].split():
+        outs = []
+        for d in devs:
+            x = d.asarray(a)
+            if (width, op) in SIM_RAISES:
+                with pytest.raises(RuntimeError, match="out of rows"):
+                    np.asarray(SIM_OPS[op](x, b))
+                continue
+            if op == "divmod":
+                q, r = divmod(x, b)
+                outs.append(np.stack([np.asarray(q), np.asarray(r)]))
+            else:
+                outs.append(np.asarray(SIM_OPS[op](x, b)))
+        if outs:
+            np.testing.assert_array_equal(outs[1], outs[0])
+            if op in ("//", "%"):
+                want = np.where(b == 0, 0,
+                                SIM_OPS[op](a, np.maximum(b, 1)))
+                np.testing.assert_array_equal(outs[1], want)
+    assert devs[1].stats.as_dict() == devs[0].stats.as_dict()
+    rchip, tchip = (d.engine._alu.chip for d in devs)
+    assert dataclasses.asdict(tchip.stats) == dataclasses.asdict(rchip.stats)
+    assert devs[1].engine._alu.op_counts == devs[0].engine._alu.op_counts
+    np.testing.assert_array_equal(tchip.banks.numpy().view(np.uint32),
+                                  rchip.banks)
+
+
+def test_sim_engine_refuses_fuse_and_keeps_large_operands_on_the_host():
+    from repro_torch.core.engine import PulsarEngine
+    with pytest.raises(ValueError, match="routes ops through an ALU"):
+        PulsarEngine(backend="sim", fuse=True, device="cpu")
+    # An operand larger than one chip row is computed by the host NumPy
+    # dataplane, as in the reference.
+    dev = tpum.device(mfr="H", width=8, backend="sim", row_bits=64,
+                      device="cpu")
+    chip = dev.engine._alu.chip
+    a = np.arange(200, dtype=np.uint64) % 256
+    ops_before = chip.stats.n_ops
+    np.testing.assert_array_equal(np.asarray(dev.asarray(a) + a),
+                                  (a + a) & np.uint64(0xFF))
+    assert chip.stats.n_ops == ops_before

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` (and not
 ``chip_smoke.py``) imports JAX or the reference package, and the port's
 public API imports, flushes, calibrates and runs an injected flush with
-both of them unimportable."""
+both of them unimportable — and so do the chip model (``PulsarChip``,
+the executor, the bit-serial ALU, cold-boot destruction), the ``sim``
+backend and the bit-serial add kernel's dispatch."""
 
 from __future__ import annotations
 
@@ -56,6 +58,26 @@ def test_port_runs_with_jax_and_reference_unimportable():
         z = (x + 5).to_numpy()
         assert z.tolist() == [i + 5 for i in range(64)]
         assert dev.counters.get("reliability.flushes") == 1
+        # The chip-model slice: the sim backend, the chip, the ALU, the
+        # destruction use case and the bit-serial add dispatch.
+        import torch
+        from repro_torch.core import (BitSerialAlu, PulsarChip,
+                                      PulsarExecutor, TEST_GEOMETRY, MFR_H)
+        from repro_torch.core.destruction import destroy_bank_rowclone
+        from repro_torch.kernels import bitserial_add
+        sim = pum.device(mfr="H", width=8, backend="sim", row_bits=64,
+                         device="cpu")
+        a = np.arange(64, dtype=np.uint64)
+        assert (sim.asarray(a) * 3).to_numpy().tolist() == [
+            (3 * i) % 256 for i in range(64)]
+        chip = PulsarChip(TEST_GEOMETRY, MFR_H, device="cpu")
+        alu = BitSerialAlu(PulsarExecutor(chip, 0, 0), width=4)
+        v = alu.load(np.arange(1024, dtype=np.uint64) % 16)
+        s = alu.store(alu.add(v, v))
+        assert s.tolist() == [(2 * i) % 16 for i in range(1024)]
+        assert destroy_bank_rowclone(chip, 1).rows_destroyed == 128
+        p = torch.stack([chip.peek(0, r) for r in v.pos_rows])
+        assert torch.equal(bitserial_add(p, p)[1:], p[:-1])
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -143,6 +143,27 @@ def test_injected_flush_matches_reference(case, width):
     assert port.stats.as_dict() == ref.stats.as_dict()
 
 
+@pytest.mark.parametrize("width", [16, 64])
+def test_vote_escalates_past_32_replicas(width):
+    """31 votes, escalated by two per retry to 33 and 35: the vote runs at
+    any replica count, as the reference's does (the MAJ-N kernel's counter
+    takes up to 65535 planes). A margin of 31 makes the 31-vote round weak
+    on any disagreement, so the retries are taken."""
+    policy = dict(flip_scale=40.0, steer=False, votes=31, max_attempts=3,
+                  min_margin=31)
+    a, b = operands(width, 512, 13)
+    ref, port = device_pair(width, inject=True, pv_scale=5.0, **policy)
+    want = run_kernel(ref, a, b)
+    got = run_kernel(port, a, b)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    want_c, got_c = rel_counters(ref), rel_counters(port)
+    assert got_c == want_c
+    assert got_c["reliability.retries"] >= 1
+    assert got_c["reliability.votes_run"] > 31 * len(got)
+    assert port.stats.as_dict() == ref.stats.as_dict()
+
+
 def test_flush_span_reports_attempts(tmp_path):
     a, b = operands(16, 256, 15)
     _, port = device_pair(16, inject=True, pv_scale=5.0, flip_scale=40.0,
@@ -161,7 +182,7 @@ def test_flush_span_reports_attempts(tmp_path):
 
 
 @pytest.mark.parametrize("width", [5, 16, 32, 48, 64])
-@pytest.mark.parametrize("votes", [1, 3, 5, 7])
+@pytest.mark.parametrize("votes", [1, 3, 5, 7, 33, 65])
 def test_majority_vote_matches_reference(width, votes):
     rng = np.random.default_rng(width * 10 + votes)
     layout = LAYOUT32 if width <= 32 else LAYOUT64
