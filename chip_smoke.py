@@ -61,7 +61,28 @@ into ``build/repro_torch/`` and then, failing on the first error:
     chip's ``OpStats`` equal the same device on the CPU (the ops whose ALU
     runs out of its 512-row subarray — ``//`` and ``%`` at 32 bits, ``*``,
     ``//`` and ``%`` at 64 — raise on both, as in the reference);
-12. prints one JSON line of per-kernel results, the card's name and power
+12. the controller at the default geometry (16 banks, 65536 bitlines):
+    prog16 at 2M lanes on ``pum.device(controller="auto")``, bit-exact
+    against NumPy with ``EngineStats`` (``refresh_stall_ns`` included)
+    equal to the same program on a CPU device with ``controller="auto"``;
+    prints the first record's wall time (the controller's ``batch_cost``),
+    the warm flush spans and the launches; then an injected prog16 2M
+    flush on phase 7's map under the controller (``reliability.*``
+    counters and ``EngineStats`` equal to the CPU's), and the 8-port
+    crossbar stream of ``benchmarks/bank_parallelism.py`` (no timing
+    violation; prints ``derive_port_counters``);
+13. client contexts and ``flush_async``: eight threads, each in its own
+    named ``client()`` (one under a side CUDA stream), record prog16 at 2M
+    lanes and flush asynchronously; outputs bit-exact against NumPy and
+    merged ``EngineStats`` equal to a serial run of the same named
+    clients; prints the wall time of the eight asynchronous flushes beside
+    the same eight flushed synchronously on one thread;
+14. ``capture`` of prog16 at 2M and 32M lanes: replays equal NumPy, one
+    recording, stats equal to re-recording, one fused-program launch and
+    no ``flush.record``/``flush.optimize`` span per replay; prints the
+    first call's and the warm replay's wall time (and uploads per replay)
+    beside the warm uncaptured flush;
+15. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -81,6 +102,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -240,6 +262,49 @@ def bmi(dev, bitmaps):
     for bm in bitmaps[1:]:
         acc = acc & bm
     return acc.popcount()
+
+
+def np_popcount(x) -> "np.ndarray":
+    """Set bits per uint64 element, counted by NumPy on the host."""
+    import numpy as np
+    bits = np.unpackbits(np.ascontiguousarray(x).view(np.uint8))
+    return bits.reshape(-1, 64).sum(axis=1, dtype=np.uint64)
+
+
+def prog16_numpy(a, b, c, width: int = 32):
+    """:func:`prog16` in NumPy on the host (arithmetic modulo 2**width):
+    the independent check of the controller, async and capture phases."""
+    import numpy as np
+    m = np.uint64((1 << width) - 1)
+    t = a & b
+    t = t ^ c
+    t = t | b
+    t = (t + a) & m
+    t = (t - c) & m
+    t = t ^ b
+    t = t & a
+    t = (t + c) & m
+    t = t | a
+    t = (t - b) & m
+    t = t ^ a
+    t = t & c
+    t = (t + b) & m
+    t = np_popcount(t)
+    t = (t + a) & m
+    return t ^ c
+
+
+def span_ms(tracer) -> dict:
+    """Milliseconds per span name over a tracer's events."""
+    spans = {}
+    for name, t0_ns, t1_ns, _ in tracer.events:
+        spans[name] = spans.get(name, 0.0) + (t1_ns - t0_ns) / 1e6
+    return spans
+
+
+def reset_launches(build) -> None:
+    for k in list(build.LAUNCHES):
+        build.LAUNCHES[k] = 0
 
 
 def random_program(rng, width: int, opcodes, n_inputs: int = 3):
@@ -861,6 +926,7 @@ def main() -> int:
 
     # -- 8. the reliability path: injected fused flushes ----------------- #
     rel_launches = collections.Counter()
+    rel_cases = {}
     injected = [("prog16 2M lanes", 32, prog16,
                  [rng.integers(0, 2**32, n2m, dtype=np.uint64)
                   for _ in range(3)]),
@@ -912,6 +978,7 @@ def main() -> int:
                 break
         print(f"injected flush {label}: config MAJ{m_n[0]}@{m_n[1]}, "
               f"target {target} flips per replica, flip_scale {hi:.6g}")
+        rel_cases[label] = (rcfg, args)
         clean = fn(pum.device(width=width), *args).to_numpy()
         dev = pum.device(width=width, reliability=rcfg)
         for k in list(_build.LAUNCHES):
@@ -1054,7 +1121,270 @@ def main() -> int:
     print(f"sim backend: {time.perf_counter() - sim_t0:.1f} s (card and CPU), "
           f"launches {sim_launches}")
 
-    # -- 12. results ----------------------------------------------------- #
+    # -- 12. the controller: controller-priced flushes ------------------ #
+    from repro_torch.controller import retarget_program
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.telemetry import (check_timing_invariants,
+                                       derive_port_counters)
+    k12 = ("bit_transpose32", "run_program_cuda")
+    ops16 = [rng.integers(0, 2**32, n2m, dtype=np.uint64) for _ in range(3)]
+    want16 = prog16_numpy(*ops16)
+    reset_launches(_build)
+    cdev = pum.device(controller="auto")
+    check(cdev.torch_device.type == "cuda", "controller device not on cuda")
+    mc = cdev.engine.controller
+    t = time.perf_counter()
+    out = prog16(cdev, *ops16)
+    ctrl_record_s = time.perf_counter() - t
+    got = out.to_numpy()
+    ctrl_first_s = time.perf_counter() - t
+    with pum.profile(cdev) as tr:
+        t = time.perf_counter()
+        again = prog16(cdev, *ops16).to_numpy()
+        ctrl_warm_s = time.perf_counter() - t
+    ctrl_launches = dict(_build.LAUNCHES)
+    host = pum.device(controller="auto", device="cpu")
+    for _ in range(2):
+        host_out = prog16(host, *ops16).to_numpy()
+    check(np.array_equal(got, want16) and np.array_equal(again, want16)
+          and np.array_equal(host_out, want16),
+          "controller prog16: differs from NumPy")
+    check(cdev.stats.as_dict() == host.stats.as_dict(),
+          f"controller prog16: EngineStats differ from the CPU device "
+          f"({cdev.stats} vs {host.stats})")
+    check(cdev.stats.refresh_stall_ns > 0,
+          "controller prog16: no refresh stall priced")
+    check(all(ctrl_launches.get(k, 0) > 0 for k in k12),
+          f"controller prog16: kernel launches did not rise "
+          f"({ctrl_launches})")
+    print(f"controller prog16 2M lanes (controller='auto', 16 banks): "
+          f"bit-exact vs NumPy, EngineStats equal to the CPU device "
+          f"{cdev.stats}; first record {ctrl_record_s:.3f} s (batch_cost "
+          f"of {len(mc._batch_cache)} configurations), first flush done at "
+          f"{ctrl_first_s:.3f} s, warm {ctrl_warm_s:.4f} s, launches "
+          f"{ctrl_launches} (2 flushes)")
+    print("  warm flush spans (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in span_ms(tr).items()))
+
+    rcfg, args = rel_cases["prog16 2M lanes"]
+    reset_launches(_build)
+    idev = pum.device(controller=mc, reliability=rcfg)
+    t = time.perf_counter()
+    got = prog16(idev, *args).to_numpy()
+    inj_ctrl_s = time.perf_counter() - t
+    ctrl_inj_launches = dict(_build.LAUNCHES)
+    ihost = pum.device(controller="auto", reliability=rcfg, device="cpu")
+    host_out = prog16(ihost, *args).to_numpy()
+    counters = {k: v for k, v in idev.counters.as_dict()["counters"].items()
+                if k.startswith("reliability.")}
+    host_counters = {
+        k: v for k, v in ihost.counters.as_dict()["counters"].items()
+        if k.startswith("reliability.")}
+    want = prog16_numpy(*args)
+    check(np.array_equal(got, want) and np.array_equal(host_out, want),
+          "controller injected prog16: differs from NumPy")
+    check(counters == host_counters,
+          f"controller injected prog16: reliability counters differ from "
+          f"the CPU ({counters} vs {host_counters})")
+    check(idev.stats.as_dict() == ihost.stats.as_dict(),
+          "controller injected prog16: EngineStats differ from the CPU")
+    check(counters.get("reliability.corrected_bits", 0) > 0,
+          f"controller injected prog16: nothing corrected ({counters})")
+    check(all(ctrl_inj_launches.get(k, 0) > 0 for k in k12 + ("maj_n",)),
+          f"controller injected prog16: kernel launches did not all rise "
+          f"({ctrl_inj_launches})")
+    print(f"controller injected prog16 2M lanes: bank order "
+          f"{idev.reliability.bank_order(16)}, bit-exact, counters and "
+          f"EngineStats equal to the CPU {idev.stats}, {inj_ctrl_s:.3f} s, "
+          f"launches {ctrl_inj_launches}")
+    print(f"  reliability counters: {counters}")
+
+    unit = CostModel(row_bits=65536).maj_unit_programs(3, 8)
+    n_ports, n_maj = 8, 32
+    streams = [[retarget_program(prog, (i * n_ports + p) % 16)
+                for i in range(n_maj // n_ports) for prog in unit]
+               for p in range(n_ports)]
+    t = time.perf_counter()
+    xtr = mc.schedule_concurrent(streams)
+    xbar_s = time.perf_counter() - t
+    viol = check_timing_invariants(xtr)
+    check(viol == [], f"crossbar: timing violations {viol[:3]}")
+    serial_ns = sum(mc.schedule(s).total_ns for s in streams)
+    port_counters = derive_port_counters(xtr).as_dict()["counters"]
+    print(f"crossbar 8 ports x {n_maj // n_ports} MAJ3@8 ops over 16 banks: "
+          f"makespan {xtr.total_ns:.2f} ns, serial sum {serial_ns:.2f} ns, "
+          f"overlap {serial_ns / xtr.total_ns:.3f}x, 0 violations, "
+          f"{xtr.n_refreshes} refreshes, {xbar_s:.3f} s on the host")
+    print(f"  derive_port_counters: {port_counters}")
+
+    # -- 13. client contexts and flush_async ----------------------------- #
+    n_clients = 8
+    client_ops = [[rng.integers(0, 2**32, n2m, dtype=np.uint64)
+                   for _ in range(3)] for _ in range(n_clients)]
+    client_want = [prog16_numpy(*o) for o in client_ops]
+    adev = pum.device(controller=mc)
+    sdev = pum.device(controller=mc)
+    side = torch.cuda.Stream()
+    side_handles = []
+    real_stream_of = _build.stream_of
+
+    def stream_of(x):  # which stream the side client's kernels ran on
+        h = real_stream_of(x)
+        if threading.current_thread().name.startswith("pum-flush"):
+            side_handles.append(h)
+        return h
+
+    def async_round():
+        outs = [None] * n_clients
+        errors = []
+        barrier = threading.Barrier(n_clients)
+
+        def client(i):
+            try:
+                barrier.wait(timeout=60)
+                with adev.client(f"c{i}"):
+                    if i == 0:
+                        with torch.cuda.stream(side):
+                            outs[i] = prog16(adev, *client_ops[i])
+                            adev.flush_async().result(timeout=300)
+                    else:
+                        outs[i] = prog16(adev, *client_ops[i])
+                        adev.flush_async().result(timeout=300)
+                outs[i] = outs[i].to_numpy()
+            except Exception as e:  # re-raised on the main thread
+                errors.append((i, e))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_clients)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads),
+              "async clients hung")
+        if errors:
+            raise errors[0][1]
+        return outs, wall
+
+    def sync_round():
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(n_clients):
+            with sdev.client(f"c{i}"):
+                outs.append(prog16(sdev, *client_ops[i]).to_numpy())
+        return outs, time.perf_counter() - t0
+
+    reset_launches(_build)
+    _build.stream_of = stream_of
+    try:
+        a_outs, a_cold = async_round()
+        async_launches = dict(_build.LAUNCHES)
+        a_outs2, a_warm = async_round()
+    finally:
+        _build.stream_of = real_stream_of
+    s_outs, s_cold = sync_round()
+    s_outs2, s_warm = sync_round()
+    for i in range(n_clients):
+        check(np.array_equal(a_outs[i], client_want[i])
+              and np.array_equal(a_outs2[i], client_want[i])
+              and np.array_equal(s_outs[i], client_want[i])
+              and np.array_equal(s_outs2[i], client_want[i]),
+              f"client c{i}: output differs from NumPy")
+    check(adev.stats == sdev.stats,
+          f"async clients: merged EngineStats differ from the serial run "
+          f"({adev.stats} vs {sdev.stats})")
+    check(sorted(adev.engine._stats_shards) == sorted(
+        sdev.engine._stats_shards), "async clients: shard keys differ")
+    check(side.cuda_stream in side_handles,
+          "the side-stream client's flush did not launch on its stream")
+    check(all(async_launches.get(k, 0) >= n_clients for k in k12),
+          f"async clients: launches {async_launches}")
+    per_flush = {k: async_launches[k] / n_clients for k in k12}
+    print(f"client contexts: {n_clients} threads x prog16 2M lanes, "
+          f"flush_async (client c0 under a side CUDA stream), bit-exact vs "
+          f"NumPy, merged EngineStats equal to the serial run {adev.stats}; "
+          f"async wall {a_cold:.3f} s cold / {a_warm:.3f} s warm, sync on "
+          f"one thread {s_cold:.3f} s cold / {s_warm:.3f} s warm; launches "
+          f"{async_launches} ({per_flush} per flush)")
+    del adev, sdev, client_ops, client_want, a_outs, a_outs2, s_outs, s_outs2
+
+    # -- 14. capture ----------------------------------------------------- #
+    uploads = []
+    real_upload = engine_mod._upload
+
+    def counting_upload(wire, device):
+        uploads.append(wire.nbytes)
+        return real_upload(wire, device)
+
+    capture_launches = collections.Counter()
+    for label, n, kw in (("2M", n2m, {}),
+                         ("32M", 16 * n2m, {"flush_memory_bytes": None})):
+        ops_c = ops16 if n == n2m else [
+            rng.integers(0, 2**32, n, dtype=np.uint64) for _ in range(3)]
+        want = want16 if n == n2m else prog16_numpy(*ops_c)
+        kdev = pum.device(controller=mc, **kw)
+        rdev = pum.device(controller=mc, **kw)
+        # the warm uncaptured flush of the same size
+        for _ in range(2):
+            t = time.perf_counter()
+            r = prog16(rdev, *ops_c).to_numpy()
+            flush_s = time.perf_counter() - t
+        check(np.array_equal(r, want), f"capture {label}: flush differs")
+        prog = kdev.capture(lambda x, y, z: prog16(kdev, x, y, z),
+                            name=f"prog16_{label}")
+        reset_launches(_build)
+        engine_mod._upload = counting_upload
+        try:
+            uploads.clear()
+            t = time.perf_counter()
+            first = prog(*ops_c)
+            first_s = time.perf_counter() - t
+            first_uploads = len(uploads)
+            replay_s, replay_uploads = [], []
+            with pum.profile(kdev) as tr:
+                for _ in range(3):
+                    uploads.clear()
+                    before = _build.LAUNCHES["run_program_cuda"]
+                    t = time.perf_counter()
+                    out = prog(*ops_c)
+                    replay_s.append(time.perf_counter() - t)
+                    replay_uploads.append(len(uploads))
+                    check(_build.LAUNCHES["run_program_cuda"] == before + 1,
+                          f"capture {label}: a replay did not launch the "
+                          f"fused-program kernel exactly once")
+                    check(np.array_equal(out, want),
+                          f"capture {label}: a replay differs from NumPy")
+        finally:
+            engine_mod._upload = real_upload
+        capture_launches.update(_build.LAUNCHES)
+        names = {name for name, *_ in tr.events}
+        check(not names & {"flush.record", "flush.optimize"},
+              f"capture {label}: a replay recorded or optimized ({names})")
+        check(np.array_equal(first, want), f"capture {label}: first call "
+              f"differs from NumPy")
+        check(prog.n_records == 1 and prog.n_replays == 3,
+              f"capture {label}: {prog.n_records} records, "
+              f"{prog.n_replays} replays")
+        for _ in range(2):  # re-record: rdev now holds 4 recordings
+            prog16(rdev, *ops_c).to_numpy()
+        check(kdev.stats == rdev.stats,
+              f"capture {label}: stats differ from re-recording "
+              f"({kdev.stats} vs {rdev.stats})")
+        print(f"capture prog16 {label} lanes: replays equal NumPy, 1 "
+              f"recording, stats equal to re-recording, 1 K2 launch and no "
+              f"record/optimize span per replay; first call {first_s:.4f} s "
+              f"({first_uploads} uploads), warm replay {replay_s[-1]:.4f} s "
+              f"(replays {[round(x, 4) for x in replay_s]}, uploads per "
+              f"replay {replay_uploads}), warm uncaptured flush "
+              f"{flush_s:.4f} s")
+        del kdev, rdev, prog, ops_c, want
+    print(f"capture launches (3 replays at 2M and at 32M): "
+          f"{dict(capture_launches)}")
+
+    # -- 15. results ----------------------------------------------------- #
     results["kernels"] = [
         {"name": "bit_transpose32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bit_transpose.cu",
@@ -1062,6 +1392,9 @@ def main() -> int:
          "launches": launches["bit_transpose32"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None,
+         "launches_controller": ctrl_launches["bit_transpose32"],
+         "launches_async": async_launches["bit_transpose32"],
+         "launches_capture": capture_launches["bit_transpose32"],
          "build_s": _build.BUILDS[bit_transpose.build_item()[0]]["seconds"]},
         {"name": "run_program_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/codegen.py",
@@ -1069,7 +1402,10 @@ def main() -> int:
          "launches": launches["run_program_cuda"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes" if k2_bound_b >= k2_bound_o else "operations",
-         "library_ms": k2_lib, "build_s": k2_build},
+         "library_ms": k2_lib, "build_s": k2_build,
+         "launches_controller": ctrl_launches["run_program_cuda"],
+         "launches_async": async_launches["run_program_cuda"],
+         "launches_capture": capture_launches["run_program_cuda"]},
         {"name": "maj_n", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/maj_n.cu",
          "replaces": "src/repro/kernels/maj_n.py:44",
@@ -1079,6 +1415,7 @@ def main() -> int:
          "library_ms": None,
          "launches_chip_model": chip_launches["maj_n"],
          "launches_sim": sim_launches["maj_n"],
+         "launches_controller_injected": ctrl_inj_launches["maj_n"],
          "build_s": _build.BUILDS[maj_n.build_item()[0]]["seconds"]},
         {"name": "bitserial_add", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_add.cu",

@@ -59,6 +59,13 @@ class ScheduleResult:
         """(cmd, issue_time) pairs in issue order."""
         return list(zip(self.cmds, self.issue_times))
 
+    def counters(self, timings: DramTimings | None = None):
+        """Derive a :class:`repro_torch.telemetry.CounterBank` from this
+        trace (bus utilization, row hit/miss/conflict, tRRD/tFAW stalls).
+        Pure post-hoc replay — the schedule itself is untouched."""
+        from repro_torch.telemetry import derive_controller_counters
+        return derive_controller_counters(self, timings)
+
 
 class CommandScheduler:
     """Assigns issue times to a command stream.

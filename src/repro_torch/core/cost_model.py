@@ -51,8 +51,7 @@ class CostModel:
     def __init__(self, timings: DramTimings = DDR4_2400,
                  row_bits: int = 65536, controller=None):
         """``controller``: an optional
-        memory controller (``MemoryController`` of the controller slice, not
-        yet ported); when set, primitive
+        :class:`repro_torch.controller.MemoryController`; when set, primitive
         programs are priced through its bank-machine/multiplexer schedule
         (identical to the sequential path for single-bank programs — the
         equivalence is tested) and multi-bank batches can be priced with

@@ -21,10 +21,22 @@ coupled planes:
 
 ``reliability=`` (a ``ReliabilityConfig`` or ``ReliabilityMap``) attaches a
 :class:`~repro_torch.reliability.ReliabilityPlane`: the map drives the
-per-op replication choice, and with ``inject=True`` every fused flush runs
-the fault-injection + replica-vote/retry loop on the flush's device (the
-MAJ-N kernel on a CUDA device). The map's bank ranking waits for the
-controller slice.
+per-op replication choice (and, under a controller, the bank order of the
+priced batch), and with ``inject=True`` every fused flush runs the
+fault-injection + replica-vote/retry loop on the flush's device (the MAJ-N
+kernel on a CUDA device).
+
+``controller="auto"`` (or a prebuilt
+:class:`~repro_torch.controller.MemoryController`) prices every op through
+the controller's scheduled bank batch — tFAW/tRRD-limited bank parallelism
+and the steady-state refresh factor — instead of the closed-form bank
+divide. The controller is a host simulation; it runs no kernel.
+
+Concurrency: each client context (a thread, or a named :meth:`client`
+scope) records into its own graph slot and charges its own stats shard;
+``stats`` merges the shards in sorted-key order. :meth:`flush_async`
+stages a flush on the caller and dispatches it on one worker thread, at
+most two in flight, under the caller's CUDA device and stream.
 
 Width semantics: fused arithmetic computes modulo 2**width; arithmetic
 operands with bits at or above ``width`` are rejected at record time. The
@@ -34,18 +46,19 @@ the plane layout's lanes (two 32-bit lanes per word on the 32-bit layout)
 and the lanes re-join at materialization.
 
 Later slices bring the reference's other paths; asking for one raises
-``NotImplementedError`` naming its slice: ``controller=`` (the controller
-slice) and, on ``pum.Device``, ``flush_async``/``client``/``capture`` (the
-concurrency slice) and ``autotune`` (the autotune slice).
+``NotImplementedError`` naming its slice: on ``pum.Device``, ``autotune``
+(the autotune slice).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -112,13 +125,55 @@ class EngineStats:
                 f"refresh_stall={self.refresh_stall_ns:,.1f} ns)")
 
     def charge(self, cost: OpCost, n_vec_rows: int, banks: int,
-               success: float) -> None:
-        # Closed-form divide: ideal bank-level parallelism.
-        eff_rows = -(-n_vec_rows // banks)
-        self.latency_ns += cost.latency_ns * eff_rows
+               success: float, batch=None) -> None:
+        if batch is None:
+            # Closed-form divide: ideal bank-level parallelism.
+            eff_rows = -(-n_vec_rows // banks)
+            self.latency_ns += cost.latency_ns * eff_rows
+        else:
+            # Controller-scheduled pricing: the measured bank-parallel
+            # speedup (tFAW/tRRD/bus-limited, <= banks) and the steady-state
+            # refresh slowdown replace the ideal divide.
+            speedup = max(1.0, batch.parallel_speedup)
+            base = max(cost.latency_ns * n_vec_rows / speedup,
+                       cost.latency_ns * (-(-n_vec_rows // banks)))
+            total = base * batch.refresh_factor
+            self.latency_ns += total
+            self.refresh_stall_ns += total - base
         self.energy_j += cost.energy_j * n_vec_rows
         self.n_sequences += cost.n_sequences * n_vec_rows
         self.lane_efficiency = min(self.lane_efficiency, success)
+
+
+class FlushHandle:
+    """Future-like handle for one :meth:`PulsarEngine.flush_async`.
+
+    ``result()`` blocks until the dispatched graph(s) materialize and
+    re-raises the flush error on failure — a failed async flush parks its
+    graph for retry exactly like a failed synchronous ``flush()``, so a
+    later ``flush()``/``materialize()`` recovers the pending handles."""
+
+    __slots__ = ("_future",)
+
+    def __init__(self, future=None):
+        self._future = future  # None => the flush had nothing to dispatch
+
+    def done(self) -> bool:
+        return self._future is None or self._future.done()
+
+    def result(self, timeout: float | None = None) -> None:
+        """Wait for the dispatch; re-raises the flush failure, if any."""
+        if self._future is not None:
+            self._future.result(timeout)
+
+    def exception(self, timeout: float | None = None):
+        if self._future is None:
+            return None
+        return self._future.exception(timeout)
+
+    def __repr__(self) -> str:
+        state = "done" if self.done() else "in-flight"
+        return f"FlushHandle({state})"
 
 
 class LazyArray:
@@ -159,6 +214,9 @@ class LazyArray:
         if self._value is None:
             g, eng = self._graph, self._engine
             if g is not None and eng is not None:
+                # Route to the owning graph: it may belong to another
+                # client context, sit on the retry list, or be in flight
+                # on the async flush worker.
                 eng._materialize_graph(g)
             elif eng is not None:
                 eng.flush()
@@ -282,7 +340,13 @@ class _LeafCache:
         return entry, evicted
 
     def device_buffer(self, entry: "_LeafCacheEntry") -> torch.Tensor:
-        """The entry's tensor on the device (uploads once, lazily)."""
+        """The entry's tensor on the device (uploads once, lazily).
+
+        The tensor is shared by every client context and capture, which
+        may launch on other CUDA streams than the one it was allocated
+        on: each use records the calling thread's current stream, so the
+        allocator never reuses its memory under a kernel still reading
+        it."""
         dev = entry.dev
         if dev is None:
             dev = _upload(entry.wire, self.device)
@@ -291,6 +355,8 @@ class _LeafCache:
                     entry.dev = dev
                 else:       # another flush won the upload race
                     dev = entry.dev
+        if dev.is_cuda:
+            dev.record_stream(torch.cuda.current_stream(dev.device))
         return dev
 
     def drop_device(self, entry: "_LeafCacheEntry") -> None:
@@ -360,9 +426,12 @@ class _OpGraph:
         self.ops: list[tuple[str, tuple, int]] = []  # (opcode, args, param)
         self.results: list = []         # weakref per op
         self.t_start: int | None = None  # first-op time (tracer attached)
-        # "recording" in the engine's slot, "queued" on the retry list
-        # after a failed flush, "flushing", "done".
+        # Flush lifecycle (guarded by the engine lock): "recording" in a
+        # client context's slot, "queued" on the retry list after a failed
+        # flush, "flushing" (``done`` is then an Event concurrent
+        # materializers wait on), "done".
         self.state: str = "recording"
+        self.done: threading.Event | None = None
 
     def leaf_id(self, arr: np.ndarray) -> tuple[str, int]:
         """Register an operand under the copy-on-write snapshot contract:
@@ -414,6 +483,12 @@ class _OpGraph:
         self._pins.append(arr)
         return ("leaf", i)
 
+    def stage_leaf(self, li: int) -> np.ndarray:
+        """The padded int32 host wire for leaf ``li`` (zero-copy: the
+        record-time snapshot or the cached upload's host wire)."""
+        leaf = self.leaves[li]
+        return leaf.wire if leaf.entry is None else leaf.entry.wire
+
     def add_op(self, opcode: str, args: tuple, param: int,
                out: "LazyArray", internal: bool = False) -> int:
         self.ops.append((opcode, args, param))
@@ -423,9 +498,14 @@ class _OpGraph:
         return len(self.ops) - 1
 
 
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {slice_name}")
+def _cuda_scope(where):
+    """Context that makes ``where`` = (device, stream) current on the
+    calling thread (a null context for ``None``: a CPU engine)."""
+    stack = contextlib.ExitStack()
+    if where is not None:
+        stack.enter_context(torch.cuda.device(where[0]))
+        stack.enter_context(torch.cuda.stream(where[1]))
+    return stack
 
 
 class PulsarEngine:
@@ -474,33 +554,49 @@ class PulsarEngine:
             raise ValueError(
                 f"width {width} does not fit the {self.layout.word_bits}"
                 f"-bit plane layout {self.layout.name!r}")
-        if controller is not None:
-            raise _later_slice("controller-scheduled pricing (controller=)",
-                               "the controller slice")
+        # controller="auto" builds a MemoryController over `banks` banks;
+        # None keeps the closed-form bank divide. `ref_postponing` batches
+        # up to N REF commands into one rank lockout (JEDEC allows 8).
         if not 1 <= ref_postponing <= 8:
             raise ValueError(
                 f"ref_postponing must be in [1, 8] (JEDEC allows "
                 f"postponing up to 8 REFs), got {ref_postponing}")
-        if ref_postponing != 1:
+        if ref_postponing != 1 and controller != "auto":
             raise ValueError(
                 "ref_postponing requires controller='auto' (with "
-                "controller=None refresh is not modeled)")
+                "controller=None refresh is not modeled; a prebuilt "
+                "MemoryController sets postponing= itself)")
         if cmd_buffer_lookahead < 1:
             raise ValueError(f"cmd_buffer_lookahead must be >= 1, got "
                              f"{cmd_buffer_lookahead}")
-        self.controller = None
+        if controller == "auto":
+            from repro_torch.controller import MemoryController
+            controller = MemoryController(n_banks=banks,
+                                          postponing=ref_postponing,
+                                          lookahead=cmd_buffer_lookahead)
+        self.controller = controller
         self.ref_postponing = ref_postponing
+        # Crossbar command-buffer depth for concurrent-stream scheduling;
+        # execution-only (never priced by the single-stream cost plane).
         self.cmd_buffer_lookahead = cmd_buffer_lookahead
-        self.cost = CostModel(row_bits=row_bits)
+        self.cost = CostModel(row_bits=row_bits, controller=controller)
         self.db = success_db or default_db()
-        # The RLock guards record-side mutation (the recording slot, the
-        # stats, cost caches, the retry list); pipeline dispatch runs
-        # outside it.
+        # Concurrency state: one recording slot + one EngineStats shard
+        # per client context (a thread, or a named ``client()`` scope).
+        # The RLock guards all record-side mutation (slots, shards, cost
+        # caches, the retry list); pipeline dispatch runs outside it.
         self._lock = threading.RLock()
-        self._slot: _OpGraph | None = None
-        self._stats = EngineStats()
+        self._local = threading.local()
+        self._slots: dict[tuple, _OpGraph] = {}
+        self._stats_shards: dict[tuple, EngineStats] = {}
         self._retry: list[_OpGraph] = []       # failed flushes, FIFO
+        self._inflight: dict[int, object] = {}  # id(graph) -> Future
+        self._executor: ThreadPoolExecutor | None = None
+        # Double-buffered async flush: at most 2 staged dispatches in
+        # flight — the caller stages flush k+1 while the worker runs k.
+        self._async_slots = threading.BoundedSemaphore(2)
         self._best_cfg_cache: dict = {}
+        self._batch_cache: dict[tuple, object] = {}
         spec = get_backend(backend)
         if "eager" not in spec.capabilities:
             raise ValueError(
@@ -582,11 +678,67 @@ class PulsarEngine:
         # pipeline ran; for inspection).
         self.last_program: FusedProgram | None = None
 
+    # ------------------------------------------------------------------ #
+    # Client contexts (per-thread / named recording slots + stats shards)
+    # ------------------------------------------------------------------ #
+
+    def _ctx_key(self) -> tuple:
+        name = getattr(self._local, "client", None)
+        if name is not None:
+            return ("client", name)
+        return ("thread", threading.get_ident())
+
+    @contextlib.contextmanager
+    def client(self, name: str):
+        """Scope ops to a named client context: recorded ops go to the
+        context's own graph slot and cost charges to its own stats shard,
+        so N logical clients share one engine (from any threads) without
+        interleaving their programs. Without a ``client()`` scope the
+        calling thread is its own implicit context."""
+        prev = getattr(self._local, "client", None)
+        self._local.client = str(name)
+        try:
+            yield self
+        finally:
+            self._local.client = prev
+
+    @property
+    def _graph(self) -> "_OpGraph | None":
+        """The current client context's recording graph (or None)."""
+        return self._slots.get(self._ctx_key())
+
+    @_graph.setter
+    def _graph(self, g: "_OpGraph | None") -> None:
+        key = self._ctx_key()
+        if g is None:
+            self._slots.pop(key, None)
+        else:
+            self._slots[key] = g
+
+    def _stats_shard(self) -> EngineStats:
+        s = self._stats_shards.get(self._ctx_key())
+        if s is None:
+            s = self._stats_shards[self._ctx_key()] = EngineStats()
+        return s
+
     @property
     def stats(self) -> EngineStats:
-        """A snapshot of the accumulated cost-plane charges."""
+        """Merged cost-plane charges across every client context. Shards
+        merge in sorted-key order, so the totals do not depend on which
+        thread interleaving produced the charges (float addition is
+        order-sensitive); one context is bit-identical to one
+        accumulator."""
         with self._lock:
-            return dataclasses.replace(self._stats)
+            out = EngineStats()
+            for key in sorted(self._stats_shards, key=str):
+                s = self._stats_shards[key]
+                out.latency_ns += s.latency_ns
+                out.energy_j += s.energy_j
+                out.n_sequences += s.n_sequences
+                out.lane_efficiency = min(out.lane_efficiency,
+                                          s.lane_efficiency)
+                out.refresh_stall_ns += s.refresh_stall_ns
+            return out
 
     # ------------------------------------------------------------------ #
     # Cost plumbing
@@ -698,26 +850,75 @@ class PulsarEngine:
     def _n_vec_rows(self, n_elems: int) -> int:
         return -(-n_elems // self.row_bits)
 
+    def _batch_for(self, kind: str, m: int, n_rg: int):
+        """Controller-measured bank-batch cost for this op's dominant
+        primitive (the MAJ unit for compute kinds, the full-row transfer
+        program for load/store), cached per configuration."""
+        if kind in ("load", "store"):
+            key = ("io", kind)
+        else:
+            key = ("maj", m, n_rg, self.chained)
+        if key not in self._batch_cache:
+            from repro_torch.core import commands as cmds
+            t = self.cost.t
+            if kind == "load":
+                unit = [cmds.prog_write_row(0, 0, self.cost._wr_bursts, t)]
+            elif kind == "store":
+                unit = [cmds.prog_read_row(0, 0, self.cost._wr_bursts, t)]
+            else:
+                unit = self.cost.maj_unit_programs(
+                    m, n_rg, frac_supported=self.profile.frac_supported,
+                    plan_style="pow2" if self.use_pulsar else "max",
+                    # Chained staging keeps one input resident per MAJ, so
+                    # measure bank contention on the thinner command stream.
+                    resident_inputs=1 if self.chained else 0)
+            # The calibrated map's bank ranking: batches prefer strong
+            # banks.
+            order = (tuple(self.reliability.bank_order(self.banks))
+                     if self.reliability is not None else None)
+            self._batch_cache[key] = self.controller.batch_cost(
+                unit, self.banks, bank_order=order)
+        return self._batch_cache[key]
+
     def _charge(self, kind: str, n_elems: int, width: int | None = None,
                 n_planes: int | None = None) -> None:
         with self._lock:
+            log = getattr(self._local, "charge_log", None)
+            if log is not None:
+                # Program capture records the charge recipe so replays
+                # price identically to the uncaptured path.
+                log.append((kind, n_elems, width, n_planes))
             w = width or self.width
             m, n, sr, cost = self._cfg_for(kind, w, n_planes)
             if self.reliability is not None:
                 # The flush-time vote loop injects at the worst config used.
                 self.reliability.note_op(m, n, sr)
-            self._stats.charge(cost, self._n_vec_rows(n_elems), self.banks,
-                               sr)
+            batch = (self._batch_for(kind, m, n)
+                     if self.controller is not None else None)
+            self._stats_shard().charge(cost, self._n_vec_rows(n_elems),
+                                       self.banks, sr, batch)
+
+    def _replay_charges(self, recipe) -> None:
+        """Re-apply a captured charge recipe (one replayed program)."""
+        for kind, n_elems, width, n_planes in recipe:
+            self._charge(kind, n_elems, width, n_planes)
 
     def op_effective_ns(self, kind: str, width: int | None = None,
                         n_planes: int | None = None
                         ) -> tuple[float, float, int, int]:
         """Amortized per-vector-row latency of one op at this engine's bank
-        count: ``(latency_ns, success_rate, maj_fan_in, n_rg)`` — the
+        count: ``(latency_ns, success_rate, maj_fan_in, n_rg)``. With a
+        controller the latency is priced through the scheduled bank batch
+        (tFAW/tRRD-limited speedup + refresh factor); without one it is the
         closed-form single-bank latency divided by ``banks``."""
         w = width or self.width
         m, n, sr, cost = self._cfg_for(kind, w, n_planes)
-        return cost.latency_ns / self.banks, sr, m, n
+        if self.controller is None:
+            return cost.latency_ns / self.banks, sr, m, n
+        b = self._batch_for(kind, m, n)
+        eff = (cost.latency_ns / max(1.0, b.parallel_speedup)
+               * b.refresh_factor)
+        return eff, sr, m, n
 
     # ------------------------------------------------------------------ #
     # Dataplane ops (eager: NumPy on the host; fuse=True: record into the
@@ -756,7 +957,7 @@ class PulsarEngine:
         """Plane-wise ops route through the raw packed-bitmap graph when
         any operand is out of width or when a raw graph of the same lane
         count is already open."""
-        g = self._slot
+        g = self._graph
         if g is not None and g.raw \
                 and g.n == self.layout.raw_lanes_per_word \
                 * operands[0].size:
@@ -774,15 +975,17 @@ class PulsarEngine:
         shape = operands[0].shape
         lanes_per_word = self.layout.raw_lanes_per_word if raw else 1
         n = operands[0].size * lanes_per_word  # dataplane lanes
-        g = self._slot
+        g = self._graph
         if g is not None and (g.n != n or g.raw != raw):
             if self.tracer is not None:
                 self.counters.inc("engine.autoflush.mode_boundary")
             self.flush()  # one program = one lane count and one mode
 
-        # A pending raw popcount materializes before further use: its
-        # lanes are per-lane partial counts that only become the word
-        # count at the materialize fold.
+        # Cross-context materialization (a pending lazy of ANOTHER graph
+        # entering as a leaf) may dispatch a flush, so resolve operands
+        # before taking the lock. A pending raw popcount materializes
+        # before further use: its lanes are per-lane partial counts that
+        # only become the word count at the materialize fold.
         def _needs_fold(x):
             return (x._graph.raw
                     and x._graph.layout.raw_lanes_per_word == 2
@@ -790,13 +993,13 @@ class PulsarEngine:
 
         resolved = [x.materialize() if isinstance(x, LazyArray)
                     and (not (x._value is None and x._graph is not None
-                              and x._graph is self._slot)
+                              and x._graph is self._graph)
                          or _needs_fold(x))
                     else x for x in operands]
         with self._lock:
-            g = self._slot
+            g = self._graph
             if g is None:
-                g = self._slot = _OpGraph(
+                g = self._graph = _OpGraph(
                     n, self.layout.word_bits if raw else self.width,
                     self.layout, raw=raw, cache=self._leaf_cache)
                 if self.tracer is not None:
@@ -817,7 +1020,8 @@ class PulsarEngine:
             out = LazyArray(self, g, len(g.ops), shape)
             g.add_op(opcode, tuple(args), param, out, internal=internal)
             reason = None
-            if not defer_flush:
+            if not defer_flush \
+                    and not getattr(self._local, "no_autoflush", False):
                 reason = self._graph_over_threshold(g)
                 if reason and self.tracer is not None:
                     self.counters.inc(f"engine.autoflush.{reason}")
@@ -840,25 +1044,180 @@ class PulsarEngine:
         return None
 
     def flush(self) -> None:
-        """Materialize the pending op graph through the fused pipeline
-        (one transpose in, one fused program, one transpose out). Drains
-        graphs parked by earlier failed flushes first. A failure parks the
-        graph on the retry list and re-raises. Never touches the cost
-        plane — every op was charged at record time."""
+        """Materialize the calling context's pending op graph through the
+        fused pipeline (one transpose in, one fused program, one transpose
+        out). Drains graphs parked by earlier failed flushes first. A
+        failure parks the graph on the retry list (never back into a
+        recording slot, so the restore cannot interleave with another
+        client's recording) and re-raises. Never touches the cost plane —
+        every op was charged at record time."""
         while True:
-            with self._lock:
-                if self._retry:
-                    g = self._retry.pop(0)
-                else:
-                    g, self._slot = self._slot, None
-                if g is None:
-                    return
-                g.state = "flushing"
+            g = self._take_next(self._ctx_key())
+            if g is None:
+                return
             self._dispatch_graph(g)
 
-    flush_all = flush
+    def flush_all(self) -> None:
+        """Flush every client context's pending graph, drain the retry
+        list, and wait out in-flight async flushes (``Device.flush`` /
+        clean ``with`` exit). Failures propagate like :meth:`flush`."""
+        while True:
+            with self._lock:
+                futs = list(self._inflight.values())
+            for f in futs:
+                f.result()
+            g = self._take_next(None)
+            if g is None:
+                with self._lock:
+                    # An entry whose future resolved is stale (its
+                    # registration raced the worker's pop): drop it.
+                    for k, f in list(self._inflight.items()):
+                        if f.done():
+                            del self._inflight[k]
+                    if not self._inflight:
+                        return
+                continue
+            self._dispatch_graph(g)
+
+    def flush_async(self) -> FlushHandle:
+        """Compile + dispatch the pending graph off the calling thread.
+
+        The record-side half (dead-code scan, program normalization, leaf
+        staging) runs on the caller, so at most two flushes are staged at
+        once (double buffering: the caller stages flush k+1 while the
+        worker dispatches k; a third call blocks). The dispatch half runs
+        on the engine's single flush worker thread, under the caller's
+        CUDA device and current stream, so its uploads and kernel launches
+        queue behind the caller's own work. Returns a :class:`FlushHandle`;
+        ``result()`` re-raises a failed dispatch after parking the graph
+        for retry exactly like a failed synchronous flush."""
+        batch: list[_OpGraph] = []
+        with self._lock:
+            while self._retry:
+                batch.append(self._begin_flush(self._retry.pop(0)))
+            g = self._slots.pop(self._ctx_key(), None)
+            if g is not None and g.ops:
+                batch.append(self._begin_flush(g))
+        if not batch:
+            return FlushHandle(None)
+        staged = []
+        try:
+            for g in batch:
+                staged.append((g, self._prepare_graph(g)))
+        except BaseException:
+            # Nothing reached the worker yet: park the whole batch, in
+            # order, so a later flush/materialize retries it.
+            with self._lock:
+                self._park_graphs(batch)
+            raise
+        self._async_slots.acquire()
+        try:
+            fut = self._submit(self._async_run, staged)
+        except BaseException:
+            self._async_slots.release()
+            with self._lock:
+                self._park_graphs([g for g, _ in staged])
+            raise
+        with self._lock:
+            for g, _ in staged:
+                self._inflight[id(g)] = fut
+        if fut.done():
+            # The worker can finish before the entries above land (its
+            # per-graph pops find nothing): drop them here so flush_all
+            # never waits on an already-finished dispatch.
+            with self._lock:
+                for g, _ in staged:
+                    self._inflight.pop(id(g), None)
+        if self.tracer is not None:
+            self.counters.inc("engine.flush_async")
+        return FlushHandle(fut)
+
+    def close(self) -> None:
+        """Shut the async flush worker down (waits for in-flight
+        dispatches). Safe to call repeatedly; the worker is recreated
+        lazily if ``flush_async`` is used again."""
+        with self._lock:
+            ex, self._executor = self._executor, None
+        if ex is not None:
+            ex.shutdown(wait=True)
+
+    # -- flush plumbing -------------------------------------------------- #
+
+    def _begin_flush(self, g: _OpGraph) -> _OpGraph:
+        """Transition a detached graph to the flushing state (lock held)."""
+        g.state = "flushing"
+        g.done = threading.Event()
+        return g
+
+    def _park_graphs(self, graphs) -> None:
+        """Park failed/abandoned flushes for retry (lock held): FIFO on
+        the retry list, never back into a recording slot."""
+        for g in graphs:
+            g.state = "queued"
+            self._retry.append(g)
+            if g.done is not None:
+                g.done.set()
+
+    def _take_next(self, key) -> "_OpGraph | None":
+        """Pop the next graph to dispatch: retries first, then ``key``'s
+        slot (or any slot when ``key`` is None, for flush_all)."""
+        with self._lock:
+            if self._retry:
+                return self._begin_flush(self._retry.pop(0))
+            if key is None:
+                for k in list(self._slots):
+                    return self._begin_flush(self._slots.pop(k))
+                return None
+            g = self._slots.pop(key, None)
+            return None if g is None else self._begin_flush(g)
+
+    def _ensure_executor(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="pum-flush")
+            return self._executor
+
+    def _submit(self, fn, *args):
+        """Run ``fn(*args)`` on the flush worker under the calling
+        thread's CUDA device and current stream for this engine (a worker
+        thread otherwise starts on device 0's default stream)."""
+        where = None
+        if self.device.type == "cuda":
+            dev = self.device
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            where = (dev, torch.cuda.current_stream(dev))
+
+        def run():
+            with _cuda_scope(where):
+                return fn(*args)
+
+        return self._ensure_executor().submit(run)
+
+    def _async_run(self, staged) -> None:
+        """Worker-side half of flush_async: dispatch each staged graph."""
+        try:
+            for g, st in staged:
+                try:
+                    if st is not None:
+                        self._run_staged(g, st)
+                    with self._lock:
+                        g.state = "done"
+                except BaseException:
+                    with self._lock:
+                        self._park_graphs([g])
+                    raise
+                finally:
+                    if g.done is not None:
+                        g.done.set()
+                    with self._lock:
+                        self._inflight.pop(id(g), None)
+        finally:
+            self._async_slots.release()
 
     def _dispatch_graph(self, g: _OpGraph) -> None:
+        """Prepare + dispatch one detached graph on the calling thread."""
         try:
             st = self._prepare_graph(g)
             if st is not None:
@@ -869,23 +1228,42 @@ class PulsarEngine:
             # Keep pending handles recoverable after a transient failure:
             # park the graph so a later flush/materialize retries it.
             with self._lock:
-                g.state = "queued"
-                self._retry.append(g)
+                self._park_graphs([g])
             raise
+        finally:
+            if g.done is not None:
+                g.done.set()
 
     def _materialize_graph(self, g: _OpGraph) -> None:
-        """Make ``g``'s live handles hold values: dispatch it if it is
-        still recording or parked for retry."""
+        """Make ``g``'s live handles hold values, wherever ``g`` is in the
+        flush lifecycle: still recording (any context's slot), parked for
+        retry, in flight on the async worker (wait on it), or done."""
+        fut = None
         with self._lock:
             st = g.state
-            if st == "recording" and self._slot is g:
-                self._slot = None
+            if st == "recording":
+                for k, v in list(self._slots.items()):
+                    if v is g:
+                        del self._slots[k]
+                        break
+                self._begin_flush(g)
             elif st == "queued":
                 self._retry.remove(g)
-            if st in ("recording", "queued"):
-                g.state = "flushing"
+                self._begin_flush(g)
+            elif st == "flushing":
+                fut = self._inflight.get(id(g))
         if st in ("recording", "queued"):
             self._dispatch_graph(g)
+        elif st == "flushing":
+            # Another thread is dispatching this graph (sync or async):
+            # wait for it; if it failed and parked the graph, retry here.
+            if fut is not None:
+                fut.result()
+            elif g.done is not None:
+                g.done.wait()
+            if g.state == "queued":
+                self._materialize_graph(g)
+        # st == "done": values are set (or the flush had no live outputs).
 
     def _prepare_graph(self, g: _OpGraph):
         """Record-side half of a flush: dead-code scan, program build +
@@ -1192,7 +1570,7 @@ class PulsarEngine:
 
     def reset_stats(self) -> None:
         with self._lock:
-            self._stats = EngineStats()
+            self._stats_shards.clear()
 
 
 _M1 = np.uint64(0x5555555555555555)

@@ -12,6 +12,11 @@ The same surface as ``repro.pum`` for the slice ported so far:
   word-domain evaluator;
 * the backend registry (:func:`register_backend` and friends);
 * telemetry (:func:`profile`, :class:`Tracer`, :class:`CounterBank`);
+* concurrency (``Device.flush_async`` -> :class:`FlushHandle`,
+  ``Device.capture`` -> :class:`CapturedProgram`, ``Device.client``) —
+  N client contexts share one device, flushes dispatch off the caller's
+  thread double-buffered, and a captured program replays its compiled
+  pipeline with zero re-recording;
 * reliability (:func:`calibrate`, :class:`ReliabilityMap`,
   :class:`ReliabilityConfig`) — calibrate a simulated chip into a
   per-bank/per-subarray/per-column map on the charge-sharing kernel, then
@@ -23,11 +28,12 @@ The same surface as ``repro.pum`` for the slice ported so far:
 from repro_torch.backends import (BackendSpec, available_backends,
                                   get_backend, register_backend,
                                   select_backend, unregister_backend)
-from repro_torch.core.engine import EngineStats
+from repro_torch.core.engine import EngineStats, FlushHandle
 from repro_torch.kernels.plane_layout import (LAYOUT32, LAYOUT64,
                                               PlaneLayout, get_layout)
 from repro_torch.pum.api import (Device, PumArray, as_device, asarray,
                                  default_device, device, profile)
+from repro_torch.pum.capture import CapturedProgram
 from repro_torch.pum.config import EngineConfig
 from repro_torch.reliability import (ReliabilityConfig, ReliabilityMap,
                                      calibrate)
@@ -35,10 +41,12 @@ from repro_torch.telemetry import CounterBank, Tracer
 
 __all__ = [
     "BackendSpec",
+    "CapturedProgram",
     "CounterBank",
     "Device",
     "EngineConfig",
     "EngineStats",
+    "FlushHandle",
     "LAYOUT32",
     "LAYOUT64",
     "PlaneLayout",

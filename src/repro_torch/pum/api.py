@@ -103,18 +103,35 @@ class Device:
         return PumArray(self, np.asarray(x, np.uint64))
 
     def flush(self) -> None:
-        """Materialize the pending fused op graph (no-op when eager or
-        empty; never touches the cost plane)."""
-        self.engine.flush()
+        """Materialize every pending fused op graph — all client
+        contexts, parked retries, and in-flight async flushes (no-op when
+        eager or empty; never touches the cost plane)."""
+        self.engine.flush_all()
 
     def flush_async(self):
-        raise _later_slice("Device.flush_async", "the concurrency slice")
+        """Compile + dispatch the calling context's pending graph off
+        this thread (double-buffered: the caller stages the next flush
+        while the worker dispatches the current one, under the caller's
+        CUDA stream). Returns a :class:`~repro_torch.core.engine.
+        FlushHandle`; ``result()`` waits and re-raises a failed dispatch
+        after parking the graph for retry, exactly like a failed
+        synchronous flush."""
+        return self.engine.flush_async()
 
     def capture(self, fn, name: str | None = None):
-        raise _later_slice("Device.capture", "the concurrency slice")
+        """Capture ``fn(*PumArrays) -> PumArray(s)`` as a
+        :class:`~repro_torch.pum.capture.CapturedProgram`: first call per
+        input shape records + compiles; later calls replay the compiled
+        pipeline with zero re-recording (cost charges replay
+        identically)."""
+        from repro_torch.pum.capture import CapturedProgram
+        return CapturedProgram(self, fn, name=name)
 
     def client(self, name: str):
-        raise _later_slice("Device.client", "the concurrency slice")
+        """Scope ops to a named client context (``with dev.client("a"):``)
+        — its own recording graph and stats shard, so N logical clients
+        share the device without interleaving their programs."""
+        return self.engine.client(name)
 
     def calibrate(self, *, inject: bool = False, attach: bool = True,
                   n_subarrays: int = 4, n_columns: int = 256,
@@ -159,8 +176,9 @@ class Device:
             rcfg = ReliabilityConfig(map=rmap, inject=inject, **policy)
             self.engine.reliability = ReliabilityPlane(
                 rcfg, mfr=cfg.mfr, counters=self.engine.counters)
-            # Planning caches were computed without the map.
+            # Planning/placement caches were computed without the map.
             self.engine._best_cfg_cache.clear()
+            self.engine._batch_cache.clear()
             self.config = cfg.replace(reliability=rcfg)
         return rmap
 
@@ -168,7 +186,10 @@ class Device:
         raise _later_slice("Device.autotune", "the autotune slice")
 
     def close(self) -> None:
-        """Nothing to release yet (no async flush worker in this slice)."""
+        """Shut the async flush worker down (waits for in-flight
+        dispatches); safe to call repeatedly, recreated lazily on the
+        next ``flush_async``."""
+        self.engine.close()
 
     def __enter__(self) -> "Device":
         _ACTIVE.append(self)
@@ -178,6 +199,7 @@ class Device:
         _ACTIVE.remove(self)
         if exc_type is None:
             self.flush()
+        self.close()
 
     # -- cost plane ----------------------------------------------------- #
 

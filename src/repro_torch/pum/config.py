@@ -47,9 +47,16 @@ class EngineConfig:
       ``inject=True`` — runs the flush-time fault-injection +
       replica-vote/retry loop on the flush's device (requires
       ``fuse=True``).
-    * ``controller``, ``ref_postponing`` and ``cmd_buffer_lookahead`` keep
-      the reference's fields; a controller raises until its slice is
-      ported.
+    * ``controller`` — ``None`` (closed-form bank divide), ``"auto"``
+      (build a ``repro_torch.controller.MemoryController``), or a
+      controller instance.
+    * ``ref_postponing`` — REF commands batched per rank lockout by the
+      ``"auto"`` controller's refresher (1..8; JEDEC allows postponing up
+      to 8): longer but rarer refresh windows, priced by ``batch_cost``.
+    * ``cmd_buffer_lookahead`` — per-bank command-buffer depth of the
+      concurrent-client crossbar (the ``"auto"`` controller's
+      ``schedule_concurrent`` default); an execution knob the
+      single-stream cost plane never consults.
     """
 
     mfr: str = "M"

@@ -197,3 +197,112 @@ def test_sim_device_on_the_card_matches_cpu(cuda):
     np.testing.assert_array_equal(outs[0][2],
                                   np.where(b == 0, 0, a // np.maximum(b, 1)))
     assert dev.stats.as_dict() == host.stats.as_dict()
+
+
+def test_flush_async_from_a_side_stream(cuda):
+    """The flush worker dispatches under the caller's device and current
+    stream: a client recording under ``torch.cuda.stream(side)`` gets its
+    uploads and K1/K2 launches on ``side``."""
+    import threading
+    import repro_torch.pum as pum
+    from repro_torch.kernels import _build
+    from test_torch_cost_plane import prog16
+    rng = np.random.default_rng(7)
+    a, b, c = (rng.integers(0, 2**32, 1 << 16, dtype=np.uint64)
+               for _ in range(3))
+    host = prog16(pum.device(width=32, fuse=False), a, b, c).to_numpy()
+    dev = pum.device(width=32)
+    side = torch.cuda.Stream()
+    seen = []
+    real = _build.stream_of
+
+    def stream_of(x):
+        h = real(x)
+        if threading.current_thread().name.startswith("pum-flush"):
+            seen.append(h)
+        return h
+
+    _build.stream_of = stream_of
+    try:
+        with dev.client("side"), torch.cuda.stream(side):
+            t = prog16(dev, a, b, c)
+            dev.flush_async().result(timeout=120)
+    finally:
+        _build.stream_of = real
+    dev.close()
+    assert seen and set(seen) == {side.cuda_stream}
+    np.testing.assert_array_equal(t.to_numpy(), host)
+
+
+@pytest.mark.parametrize("engine_card,caller_card", [(1, 0), (0, 1)])
+def test_flush_async_engine_on_another_card(engine_card, caller_card):
+    """An engine on one card flushed asynchronously from a caller whose
+    current device is the other: the worker launches on the engine's
+    card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import repro_torch.pum as pum
+    from repro_torch.kernels import _build
+    a = np.arange(1 << 12, dtype=np.uint64)
+    dev = pum.device(width=32, device=f"cuda:{engine_card}")
+    devices = []
+    real = _build.stream_of
+
+    def stream_of(x):
+        devices.append((x.device, torch.cuda.current_device()))
+        return real(x)
+
+    _build.stream_of = stream_of
+    try:
+        with torch.cuda.device(caller_card):
+            t = (dev.asarray(a) + a) * a
+            dev.flush_async().result(timeout=120)
+    finally:
+        _build.stream_of = real
+    dev.close()
+    assert devices and all(
+        d == torch.device("cuda", engine_card) and cur == engine_card
+        for d, cur in devices)
+    np.testing.assert_array_equal(t.to_numpy(),
+                                  ((2 * a) * a) & np.uint64(0xFFFFFFFF))
+
+
+def test_capture_on_the_card(cuda):
+    """Replays on the card equal the host, launch the fused-program kernel
+    once each and keep stats equal to re-recording."""
+    import repro_torch.pum as pum
+    from repro_torch.kernels import _build
+    from test_torch_cost_plane import prog16
+    rng = np.random.default_rng(8)
+    a, b, c = (rng.integers(0, 2**32, 1 << 16, dtype=np.uint64)
+               for _ in range(3))
+    host = pum.device(width=32, device="cpu")
+    want = prog16(host, a, b, c).to_numpy()
+    dev = pum.device(width=32)
+    prog = dev.capture(lambda x, y, z: prog16(dev, x, y, z))
+    np.testing.assert_array_equal(prog(a, b, c), want)
+    for _ in range(3):
+        before = _build.LAUNCHES["run_program_cuda"]
+        np.testing.assert_array_equal(prog(a, b, c), want)
+        assert _build.LAUNCHES["run_program_cuda"] == before + 1
+    for _ in range(3):
+        prog16(host, a, b, c).to_numpy()
+    assert prog.n_records == 1 and prog.n_replays == 3
+    assert dev.stats == host.stats
+    dev.close()
+
+
+def test_controller_device_on_the_card(cuda):
+    """``controller="auto"`` on the card: outputs and controller-priced
+    ``EngineStats`` (refresh stall included) equal the CPU device's."""
+    import repro_torch.pum as pum
+    from test_torch_cost_plane import prog16
+    rng = np.random.default_rng(9)
+    a, b, c = (rng.integers(0, 2**16, 1 << 16, dtype=np.uint64)
+               for _ in range(3))
+    devs = [pum.device(width=16, controller="auto"),
+            pum.device(width=16, controller="auto", device="cpu")]
+    outs = [prog16(d, a, b, c).to_numpy() for d in devs]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert devs[0].stats.as_dict() == devs[1].stats.as_dict()
+    assert devs[0].stats.refresh_stall_ns > 0

@@ -196,8 +196,12 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_later_slices_raise_naming_them():
-    with pytest.raises(NotImplementedError, match="controller slice"):
-        tpum.device(device="cpu", controller="auto")
+    # The controller slice is ported: controller="auto" builds the port's
+    # MemoryController and prices through it.
+    from repro_torch.controller import MemoryController
+    dev = tpum.device(device="cpu", controller="auto", ref_postponing=2)
+    assert isinstance(dev.engine.controller, MemoryController)
+    assert dev.engine.controller.postponing == 2
     # The reliability slice is ported: reliability= validates its input
     # as the reference does.
     with pytest.raises(TypeError, match="ReliabilityConfig"):
@@ -206,11 +210,14 @@ def test_later_slices_raise_naming_them():
     assert not tpum.device(device="cpu", backend="sim").config.fuse
     with pytest.raises(NotImplementedError, match="distributed slice"):
         tpum.device(device="cpu", fused_backend="shard-words")
+    # The concurrency slice is ported: flush_async, capture and client
+    # build (their behaviour is held in tests/test_torch_concurrency.py).
     dev = tpum.device(device="cpu")
-    for call in (dev.flush_async, lambda: dev.capture(lambda x: x),
-                 lambda: dev.client("a")):
-        with pytest.raises(NotImplementedError, match="concurrency slice"):
-            call()
+    assert isinstance(dev.flush_async(), tpum.FlushHandle)
+    assert isinstance(dev.capture(lambda x: x + x), tpum.CapturedProgram)
+    with dev.client("a") as eng:
+        assert eng is dev.engine
+    dev.close()
     with pytest.raises(NotImplementedError, match="autotune slice"):
         dev.autotune()
 

@@ -3,7 +3,9 @@
 public API imports, flushes, calibrates and runs an injected flush with
 both of them unimportable — and so do the chip model (``PulsarChip``,
 the executor, the bit-serial ALU, cold-boot destruction), the ``sim``
-backend and the bit-serial add kernel's dispatch."""
+backend, the bit-serial add kernel's dispatch, the controller
+(``repro_torch.controller``, a controller-priced flush), named clients,
+``flush_async`` and a captured program."""
 
 from __future__ import annotations
 
@@ -78,6 +80,29 @@ def test_port_runs_with_jax_and_reference_unimportable():
         assert destroy_bank_rowclone(chip, 1).rows_destroyed == 128
         p = torch.stack([chip.peek(0, r) for r in v.pos_rows])
         assert torch.equal(bitserial_add(p, p)[1:], p[:-1])
+        # The controller and concurrency slice: a controller-priced
+        # flush, the crossbar, a named client's flush_async and a capture.
+        from repro_torch.controller import Crossbar, MemoryController
+        from repro_torch.telemetry import check_timing_invariants
+        cdev = pum.device(width=16, controller="auto", device="cpu")
+        assert isinstance(cdev.engine.controller, MemoryController)
+        x = cdev.asarray(np.arange(64, dtype=np.uint64))
+        assert ((x + 1) * x).to_numpy().tolist() == [
+            ((i + 1) * i) % 65536 for i in range(64)]
+        assert cdev.stats.refresh_stall_ns > 0
+        xb = Crossbar(n_ports=2, refresh=False)
+        xb.port(0).submit_access(0, row=1)
+        xb.port(1).submit_access(1, row=2)
+        assert check_timing_invariants(xb.run()) == []
+        with cdev.client("a"):
+            y = cdev.asarray(np.arange(64, dtype=np.uint64)) ^ 5
+            cdev.flush_async().result()
+        assert y.to_numpy().tolist() == [i ^ 5 for i in range(64)]
+        prog = cdev.capture(lambda u, v: u + v)
+        assert prog(a, a).tolist() == [2 * i for i in range(64)]
+        assert prog(a, a).tolist() == [2 * i for i in range(64)]
+        assert prog.n_records == 1 and prog.n_replays == 1
+        cdev.close()
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
