@@ -82,7 +82,33 @@ into ``build/repro_torch/`` and then, failing on the first error:
     no ``flush.record``/``flush.optimize`` span per replay; prints the
     first call's and the warm replay's wall time (and uploads per replay)
     beside the warm uncaptured flush;
-15. prints one JSON line of per-kernel results, the card's name and power
+15. Fig 20 at ``benchmarks/fig20_realworld.py``'s sizes and configuration
+    (mfr M, width 32, 16 banks, one shared ``MemoryController``; a PULSAR
+    device and its FracDRAM twin per kernel; BMI 30 x 1024 words,
+    BitWeaving 65,536 rows, TC 48 vertices, KCS 32 vertices with three
+    3-cliques, kNN 8 x 256 x 32, IMS 64 x 64 with four colours, both XNOR
+    layers): each kernel's own NumPy check, results and PULSAR and
+    FracDRAM ``EngineStats`` equal to the same run on CPU devices; prints
+    per kernel the wall time, K1/K2 launches and the refresh stall;
+16. the ``fig20_*`` entries of ``tests/controller/golden_costs.json``
+    (read from the fixture), reproduced on the card float for float;
+17. ``python -m repro_torch.examples.pum_database`` at its full size (BMI
+    over 8,000,000 users x 30 days, a 1,000,000-row BitWeaving column, a
+    96-vertex triangle count) on the card, results and stats equal to the
+    CPU; prints each workload's wall time; then ``kclique_star`` over a
+    4096-vertex graph twice: the repeat call uploads 0 bytes;
+18. offline autotune: prog16 at 2M lanes profiled under ``pum.profile`` on
+    a CUDA device, ``autotune(apply=True)`` picks ``vertical-cuda`` or
+    ``vertical-cuda-64``; tuned flushes bit-exact with ``EngineStats``
+    equal to a static device, also after a forced live flip to the 64-bit
+    layout; prints the plan and the tune's wall time; then the same tuned
+    against static under phase 7's fault injection (the replica vote on
+    the MAJ-N kernel), outputs equal to NumPy and stats equal;
+19. online autotune (``window_flushes=4``) on a device that eight threads
+    in named clients drive with ``flush_async`` (two rounds of prog16 at
+    2M lanes): bit-exact against NumPy, merged stats equal to a serial
+    run; prints windows and re-tunes;
+20. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -481,6 +507,384 @@ def sim_run(pum, device, width: int, a, b):
         except RuntimeError as e:
             out[name] = str(e)
     return dev, out
+
+
+K12 = ("bit_transpose32", "run_program_cuda")
+FIG20_XNOR = {"xnor_lenet_c3": (6, 16, 5, 5, 10, 10),
+              "xnor_vgg_l5": (256, 256, 3, 3, 8, 8)}
+
+
+def fig20_inputs():
+    """``benchmarks/fig20_realworld.py``'s kernels and inputs, drawn from
+    ``default_rng(20)`` in its order: ``(row, realworld function, args)``."""
+    import numpy as np
+    rng = np.random.default_rng(20)
+    bitmaps = rng.integers(0, 2**63, (30, 1024), dtype=np.uint64)
+    col = rng.integers(0, 100000, 65536, dtype=np.uint64)
+    adj = np.triu((rng.random((48, 48)) < 0.25).astype(np.uint8), 1)
+    cl_adj = np.triu((rng.random((32, 32)) < 0.4).astype(np.uint8), 1)
+    q = rng.integers(0, 256, (8, 32), dtype=np.int64)
+    r = rng.integers(0, 256, (256, 32), dtype=np.int64)
+    img = rng.integers(0, 256, (64, 64), dtype=np.int64)
+    return [("bmi", "bmi_active_users", (bitmaps,)),
+            ("bitweaving", "bitweaving_scan", (col, 1000, 60000)),
+            ("triangle_count", "triangle_count", (adj + adj.T,)),
+            ("kclique_star", "kclique_star",
+             (cl_adj + cl_adj.T, [(0, 1, 2), (3, 4, 5), (6, 7, 8)])),
+            ("knn", "knn_distances", (q, r)),
+            ("image_seg", "image_segmentation",
+             (img, np.array([20, 90, 160, 230])))]
+
+
+def fig20_run(pum, realworld, build, device: str, ctrl) -> list:
+    """Fig 20 as ``benchmarks/fig20_realworld.py`` runs it: per kernel a
+    fresh PULSAR device and its FracDRAM twin (mfr M, width 32, 16 banks,
+    priced through the shared controller ``ctrl``), then both XNOR layers
+    on one pair. Each kernel checks its own result against NumPy. Returns
+    one dict per row: result, PULSAR and FracDRAM latency and stats,
+    refresh stall, the PULSAR call's wall time and K1/K2 launches."""
+    cfg = pum.EngineConfig(mfr="M", width=32, banks=16, controller=ctrl,
+                           device=device)
+    rows = []
+    for name, fn_name, args in fig20_inputs():
+        fn = getattr(realworld, fn_name)
+        pul = pum.device(cfg)
+        frac = pum.device(cfg.replace(use_pulsar=False))
+        before = dict(build.LAUNCHES)
+        t = time.perf_counter()
+        got, p_ms, _ = fn(pul, *args)
+        wall = time.perf_counter() - t
+        rose = {k: build.LAUNCHES[k] - before.get(k, 0) for k in K12}
+        got_f, f_ms, _ = fn(frac, *args)
+        rows.append({"name": name, "result": got, "result_frac": got_f,
+                     "pulsar_ms": p_ms, "frac_ms": f_ms,
+                     "refresh_ms": pul.stats.refresh_stall_ns * 1e-6,
+                     "wall_s": wall, "launches": rose,
+                     "stats": pul.stats.as_dict(),
+                     "stats_frac": frac.stats.as_dict()})
+    pul = pum.device(cfg)
+    frac = pum.device(cfg.replace(use_pulsar=False))
+    for name, spec in FIG20_XNOR.items():
+        t = time.perf_counter()
+        p_ms = realworld.xnor_conv_cost(pul, *spec)
+        wall = time.perf_counter() - t
+        f_ms = realworld.xnor_conv_cost(frac, *spec)
+        rows.append({"name": name, "result": None, "result_frac": None,
+                     "pulsar_ms": p_ms, "frac_ms": f_ms,
+                     "refresh_ms": pul.stats.refresh_stall_ns * 1e-6,
+                     "wall_s": wall, "launches": {k: 0 for k in K12},
+                     "stats": pul.stats.as_dict(),
+                     "stats_frac": frac.stats.as_dict()})
+    return rows
+
+
+def golden_fig20(pum, realworld, device: str) -> dict:
+    """``tests/controller/golden_costs.json``'s two ``fig20_*`` workloads
+    (its own seeds and configs) on ``device``, in the fixture's shape."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    bitmaps = (rng.integers(0, 1 << 63, (7, 64), dtype=np.uint64)
+               | rng.integers(0, 1 << 63, (7, 64), dtype=np.uint64))
+    dev = pum.device(width=64, fuse=True, device=device)
+    got, _, _ = realworld.bmi_active_users(dev, bitmaps)
+    out = {"fig20_bmi_active_users": {
+        "result": got, "latency_ns": dev.stats.latency_ns,
+        "energy_j": dev.stats.energy_j,
+        "n_sequences": dev.stats.n_sequences}}
+    col = rng.integers(0, 1 << 20, 4096, dtype=np.uint64)
+    dev = pum.device(width=32, fuse=True, device=device)
+    got, _, _ = realworld.bitweaving_scan(dev, col, 1000, 800000)
+    out["fig20_bitweaving_scan"] = {
+        "result": got, "latency_ns": dev.stats.latency_ns,
+        "energy_j": dev.stats.energy_j,
+        "n_sequences": dev.stats.n_sequences}
+    return out
+
+
+def programs_of(engine_mod, fn) -> list:
+    """Every fused program ``fn()`` flushes (recorded on a CPU device, so
+    the card's kernels can be built for them up front, in parallel)."""
+    seen = []
+    real = engine_mod.get_pipeline
+
+    def spy(program, **kw):
+        seen.append(program)
+        return real(program, **kw)
+
+    engine_mod.get_pipeline = spy
+    try:
+        fn()
+    finally:
+        engine_mod.get_pipeline = real
+    return seen
+
+
+def apps_and_autotune(pum, device: str, ops16, want16, seed: int,
+                      rcfg) -> dict:
+    """The app-kernel and autotune phases on ``device`` (``"cuda"`` on the
+    card; ``"cpu"`` rehearses them with the kernels' plain versions), each
+    with the launch counts set to 0 just before it. Every result is held
+    against NumPy or a CPU device; returns the launches and timings the
+    results line reports."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from repro_torch.autotune import TunedPlan
+    from repro_torch.controller import MemoryController
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import realworld
+    from repro_torch.examples import pum_database
+    from repro_torch.kernels import _build, codegen
+
+    on_card = device != "cpu"
+    want_backend = "vertical-cuda" if on_card else "words-torch"
+    out = {}
+
+    def prebuild(programs):
+        if on_card:
+            t = time.perf_counter()
+            items = {codegen.build_item(p) for p in programs}
+            _build.build_many(sorted(items))
+            print(f"  built {len(items)} fused-program kernels in "
+                  f"{time.perf_counter() - t:.1f} s (parallel nvcc)")
+
+    # -- 15. Fig 20 at benchmarks/fig20_realworld.py's sizes and config -- #
+    host_ctrl = MemoryController(n_banks=16)
+    t = time.perf_counter()
+    host_rows = []
+    prebuild(programs_of(engine_mod, lambda: host_rows.extend(fig20_run(
+        pum, realworld, _build, "cpu", host_ctrl))))
+    host_s = time.perf_counter() - t
+    reset_launches(_build)
+    t = time.perf_counter()
+    rows = fig20_run(pum, realworld, _build, device, MemoryController(
+        n_banks=16))
+    fig20_s = time.perf_counter() - t
+    out["fig20_launches"] = dict(_build.LAUNCHES)
+    for row, host in zip(rows, host_rows):
+        name = row["name"]
+        check(np.array_equal(np.asarray(row["result"]),
+                             np.asarray(host["result"]))
+              and np.array_equal(np.asarray(row["result_frac"]),
+                                 np.asarray(host["result"])),
+              f"fig20 {name}: result differs from the CPU device")
+        check(row["stats"] == host["stats"]
+              and row["stats_frac"] == host["stats_frac"],
+              f"fig20 {name}: PULSAR or FracDRAM EngineStats differ from "
+              f"the CPU device")
+        check(row["refresh_ms"] > 0, f"fig20 {name}: no refresh stall")
+        if row["result"] is not None:
+            check(all(row["launches"][k] > 0 for k in K12) or not on_card,
+                  f"fig20 {name}: K1/K2 did not launch ({row['launches']})")
+        ratio = row["frac_ms"] / row["pulsar_ms"]
+        print(f"fig20 {name}: pulsar {row['pulsar_ms']:.3f} ms, frac "
+              f"{row['frac_ms']:.3f} ms (x{ratio:.2f}), refresh "
+              f"{row['refresh_ms']:.4f} ms; wall {row['wall_s']:.4f} s (CPU "
+              f"device {host['wall_s']:.4f} s), K1/K2 launches "
+              f"{row['launches']}; result and PULSAR/FracDRAM EngineStats "
+              f"equal the CPU device")
+    print(f"fig20: {fig20_s:.2f} s on {device} (CPU device run {host_s:.2f}"
+          f" s), launches {out['fig20_launches']}")
+
+    # -- 16. the golden fig20 entries ------------------------------------ #
+    fixture = json.loads((ROOT / "tests" / "controller"
+                          / "golden_costs.json").read_text())
+    prebuild(programs_of(engine_mod,
+                         lambda: golden_fig20(pum, realworld, "cpu")))
+    reset_launches(_build)
+    got = golden_fig20(pum, realworld, device)
+    for key, entry in got.items():
+        check(entry == fixture[key], f"golden {key}: {entry} differs from "
+                                     f"the fixture {fixture[key]}")
+    print(f"golden fig20 entries on {device}: equal to "
+          f"tests/controller/golden_costs.json float for float {got}; "
+          f"launches {dict(_build.LAUNCHES)}")
+
+    # -- 17. pum_database at its full size ------------------------------- #
+    host_db = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        prebuild(programs_of(engine_mod, lambda: host_db.update(
+            pum_database.main(device="cpu"))))
+    reset_launches(_build)
+    t = time.perf_counter()
+    db = pum_database.main(device=device)
+    db_s = time.perf_counter() - t
+    out["db_launches"] = dict(_build.LAUNCHES)
+    for key in ("bmi", "bitweaving", "triangle_count"):
+        check(db[key][0] == host_db[key][0],
+              f"pum_database {key}: result differs from the CPU device")
+    check(db["stats"] == host_db["stats"],
+          "pum_database: EngineStats differ from the CPU device")
+    print("pum_database (8,000,000 users x 30 days, 1,000,000 rows, 96 "
+          "vertices): " + ", ".join(
+              f"{k} {db[k][1]:.4f} s (CPU device {host_db[k][1]:.4f} s)"
+              for k in ("bmi", "bitweaving", "triangle_count"))
+          + f"; {db_s:.2f} s in all, launches {out['db_launches']}")
+
+    rng = np.random.default_rng(seed)
+    n = 4096
+    adj = np.triu((rng.random((n, n)) < 0.5).astype(np.uint8), 1)
+    adj = adj + adj.T
+    sets = [tuple(int(v) for v in rng.choice(n, 3, replace=False))
+            for _ in range(1024)]
+    kdev = pum.device(mfr="M", width=32, banks=16, device=device)
+    uploads = []
+    real_upload = engine_mod._upload
+
+    def counting_upload(wire, dev):
+        uploads.append(wire.nbytes)
+        return real_upload(wire, dev)
+
+    prebuild(programs_of(engine_mod, lambda: realworld.kclique_star(
+        pum.device(mfr="M", device="cpu"), adj[:64, :64], [(0, 1, 2)])))
+    kcs = []
+    engine_mod._upload = counting_upload
+    try:
+        for _ in range(2):
+            uploads.clear()
+            t = time.perf_counter()
+            got = realworld.kclique_star(kdev, adj, sets)[0]
+            kcs.append((got, time.perf_counter() - t, sum(uploads),
+                        len(uploads)))
+    finally:
+        engine_mod._upload = real_upload
+    check(kcs[0][0] == kcs[1][0], "kclique_star: repeat call differs")
+    check(kcs[0][2] > 0 and kcs[1][2] == 0,
+          f"kclique_star: the repeat call uploaded {kcs[1][2]} bytes")
+    out["kcs_upload_bytes"] = [k[2] for k in kcs]
+    print(f"kclique_star {n} vertices x {len(sets)} vertex triples: "
+          f"{kcs[0][0]} common neighbours; first call {kcs[0][1]:.4f} s "
+          f"({kcs[0][3]} uploads, {kcs[0][2]} bytes), repeat call "
+          f"{kcs[1][1]:.4f} s ({kcs[1][3]} uploads, {kcs[1][2]} bytes)")
+
+    # -- 18. autotune, offline ------------------------------------------- #
+    prebuild(programs_of(engine_mod, lambda: [
+        prog16(pum.device(width=32, layout=lay, device="cpu"),
+               *[a[:64] for a in ops16]).to_numpy() for lay in (32, 64)]))
+    reset_launches(_build)
+    tdev = pum.device(width=32, device=device)
+    sdev = pum.device(width=32, device=device)
+    with pum.profile(tdev):
+        primed = prog16(tdev, *ops16).to_numpy()
+    t = time.perf_counter()
+    plan = tdev.autotune(apply=True)
+    tune_s = time.perf_counter() - t
+    check(plan.fused_backend in (want_backend, want_backend + "-64"),
+          f"autotune picked {plan.fused_backend}")
+    tuned = prog16(tdev, *ops16).to_numpy()
+    static = [prog16(sdev, *ops16).to_numpy() for _ in range(2)]
+    check(all(np.array_equal(x, want16) for x in [primed, tuned] + static),
+          "autotune: prog16 differs from NumPy")
+    check(tdev.stats == sdev.stats,
+          "autotune: tuned EngineStats differ from the static device")
+    flipped = dataclasses.replace(plan, fused_backend=want_backend + "-64",
+                                  word_bits=64)
+    t = time.perf_counter()
+    tdev._apply_plan(flipped)
+    flip_s = time.perf_counter() - t
+    check(tdev.layout.word_bits == 64, "autotune: the layout did not flip")
+    after = prog16(tdev, *ops16).to_numpy()
+    prog16(sdev, *ops16).to_numpy()
+    check(np.array_equal(after, want16),
+          "autotune: prog16 after the live 32 -> 64 flip differs")
+    check(tdev.stats == sdev.stats,
+          "autotune: EngineStats differ after the live layout flip")
+    check(tdev.engine.last_program.layout.word_bits == 64,
+          "autotune: the flush after the flip ran the 32-bit program")
+    out["autotune_launches"] = dict(_build.LAUNCHES)
+    out["tune_s"] = tune_s
+    # Tuned against static under fault injection (``rcfg``): the replica
+    # vote runs on both sides and the outputs still equal NumPy.
+    reset_launches(_build)
+    idev = pum.device(width=32, device=device, reliability=rcfg)
+    istatic = pum.device(width=32, device=device, reliability=rcfg)
+    with pum.profile(idev):
+        inj = [prog16(idev, *ops16).to_numpy()]
+    iplan = idev.autotune(apply=True)
+    inj.append(prog16(idev, *ops16).to_numpy())
+    inj += [prog16(istatic, *ops16).to_numpy() for _ in range(2)]
+    check(all(np.array_equal(x, want16) for x in inj),
+          "autotune under injection: prog16 differs from NumPy")
+    check(idev.stats == istatic.stats,
+          "autotune under injection: EngineStats differ from static")
+    check(idev.counters.get("reliability.votes_run", 0) > 0,
+          "autotune under injection: no replica vote")
+    out["injected_launches"] = dict(_build.LAUNCHES)
+    check(out["injected_launches"].get("maj_n", 0) > 0 or not on_card,
+          "autotune under injection: maj_n never launched")
+    print(f"autotune offline, prog16 2M lanes profiled on {device}: plan "
+          f"{plan!r}, knobs {plan.knobs()}, tune {tune_s * 1e3:.2f} ms, "
+          f"apply of the 64-bit flip {flip_s * 1e3:.2f} ms; tuned and "
+          f"flipped flushes bit-exact, EngineStats equal the static "
+          f"device; launches {out['autotune_launches']} (4 flushes)")
+    print(f"autotune under injection (prog16 2M, phase 7's map, 7 votes): "
+          f"plan {iplan!r}; tuned and static flushes equal NumPy, "
+          f"EngineStats equal; launches {out['injected_launches']} "
+          f"(4 injected flushes)")
+
+    # -- 19. autotune, online, under eight async clients ------------------ #
+    n_clients = 8
+    client_ops = [[rng.integers(0, 2**32, ops16[0].size, dtype=np.uint64)
+                   for _ in range(3)] for _ in range(n_clients)]
+    client_want = [prog16_numpy(*o) for o in client_ops]
+    odev = pum.device(width=32, device=device)
+    serial = pum.device(width=32, device=device)
+    reset_launches(_build)
+    outs = {}
+    errors = []
+
+    def client(i, rnd):
+        try:
+            with odev.client(f"c{i}"):
+                h = prog16(odev, *client_ops[i])
+                odev.flush_async().result(timeout=300)
+            outs[(i, rnd)] = h.to_numpy()
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    t = time.perf_counter()
+    with pum.profile(odev):
+        check(odev.autotune(online=True, window_flushes=4) is None,
+              "online autotune returned a plan before any window")
+        for rnd in range(2):
+            threads = [threading.Thread(target=client, args=(i, rnd))
+                       for i in range(n_clients)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            check(not any(th.is_alive() for th in threads),
+                  "online autotune: async clients hung")
+            if errors:
+                raise errors[0]
+    online_s = time.perf_counter() - t
+    for rnd in range(2):
+        for i in range(n_clients):
+            with serial.client(f"c{i}"):
+                prog16(serial, *client_ops[i]).to_numpy()
+    ot = odev.engine.autotuner
+    check(all(np.array_equal(outs[(i, r)], client_want[i])
+              for i in range(n_clients) for r in range(2)),
+          "online autotune: a client's output differs from NumPy")
+    check(odev.stats == serial.stats,
+          "online autotune: merged EngineStats differ from a serial run")
+    # 16 flushes close 4 windows; a window whose ops were all recorded
+    # before the previous one closed carries none and is skipped, so how
+    # many count depends on how far the clients ran ahead of the worker.
+    check(ot._flushes == 0 and 1 <= ot.windows <= 4 and ot.retunes >= 1
+          and not ot._busy,
+          f"online autotune: {ot.windows} windows, {ot.retunes} retunes")
+    out["online_launches"] = dict(_build.LAUNCHES)
+    odev.close()
+    print(f"autotune online (window_flushes=4), {n_clients} named clients x "
+          f"2 rounds of prog16 2M lanes with flush_async: bit-exact vs "
+          f"NumPy, merged EngineStats equal a serial run; windows "
+          f"{ot.windows}, retunes {ot.retunes}, plan {ot.plan!r}, device "
+          f"now {odev.config.fused_backend or want_backend} u"
+          f"{odev.layout.word_bits}; {online_s:.3f} s, launches "
+          f"{out['online_launches']}")
+    return out
 
 
 def main() -> int:
@@ -1127,7 +1531,6 @@ def main() -> int:
     from repro_torch.core.cost_model import CostModel
     from repro_torch.telemetry import (check_timing_invariants,
                                        derive_port_counters)
-    k12 = ("bit_transpose32", "run_program_cuda")
     ops16 = [rng.integers(0, 2**32, n2m, dtype=np.uint64) for _ in range(3)]
     want16 = prog16_numpy(*ops16)
     reset_launches(_build)
@@ -1155,7 +1558,7 @@ def main() -> int:
           f"({cdev.stats} vs {host.stats})")
     check(cdev.stats.refresh_stall_ns > 0,
           "controller prog16: no refresh stall priced")
-    check(all(ctrl_launches.get(k, 0) > 0 for k in k12),
+    check(all(ctrl_launches.get(k, 0) > 0 for k in K12),
           f"controller prog16: kernel launches did not rise "
           f"({ctrl_launches})")
     print(f"controller prog16 2M lanes (controller='auto', 16 banks): "
@@ -1191,7 +1594,7 @@ def main() -> int:
           "controller injected prog16: EngineStats differ from the CPU")
     check(counters.get("reliability.corrected_bits", 0) > 0,
           f"controller injected prog16: nothing corrected ({counters})")
-    check(all(ctrl_inj_launches.get(k, 0) > 0 for k in k12 + ("maj_n",)),
+    check(all(ctrl_inj_launches.get(k, 0) > 0 for k in K12 + ("maj_n",)),
           f"controller injected prog16: kernel launches did not all rise "
           f"({ctrl_inj_launches})")
     print(f"controller injected prog16 2M lanes: bank order "
@@ -1300,9 +1703,9 @@ def main() -> int:
         sdev.engine._stats_shards), "async clients: shard keys differ")
     check(side.cuda_stream in side_handles,
           "the side-stream client's flush did not launch on its stream")
-    check(all(async_launches.get(k, 0) >= n_clients for k in k12),
+    check(all(async_launches.get(k, 0) >= n_clients for k in K12),
           f"async clients: launches {async_launches}")
-    per_flush = {k: async_launches[k] / n_clients for k in k12}
+    per_flush = {k: async_launches[k] / n_clients for k in K12}
     print(f"client contexts: {n_clients} threads x prog16 2M lanes, "
           f"flush_async (client c0 under a side CUDA stream), bit-exact vs "
           f"NumPy, merged EngineStats equal to the serial run {adev.stats}; "
@@ -1384,7 +1787,16 @@ def main() -> int:
     print(f"capture launches (3 replays at 2M and at 32M): "
           f"{dict(capture_launches)}")
 
-    # -- 15. results ----------------------------------------------------- #
+    # -- 15-19. Fig 20, golden fig20, pum_database, autotune ------------- #
+    slice5 = apps_and_autotune(pum, "cuda", ops16, want16, SEED,
+                               rel_cases["prog16 2M lanes"][0])
+
+    # -- 20. results ----------------------------------------------------- #
+    def slice5_launches(kernel):
+        return {f"launches_{phase}":
+                slice5[f"{phase}_launches"].get(kernel, 0)
+                for phase in ("fig20", "db", "autotune", "online")}
+
     results["kernels"] = [
         {"name": "bit_transpose32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bit_transpose.cu",
@@ -1395,6 +1807,7 @@ def main() -> int:
          "launches_controller": ctrl_launches["bit_transpose32"],
          "launches_async": async_launches["bit_transpose32"],
          "launches_capture": capture_launches["bit_transpose32"],
+         **slice5_launches("bit_transpose32"),
          "build_s": _build.BUILDS[bit_transpose.build_item()[0]]["seconds"]},
         {"name": "run_program_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/codegen.py",
@@ -1405,7 +1818,8 @@ def main() -> int:
          "library_ms": k2_lib, "build_s": k2_build,
          "launches_controller": ctrl_launches["run_program_cuda"],
          "launches_async": async_launches["run_program_cuda"],
-         "launches_capture": capture_launches["run_program_cuda"]},
+         "launches_capture": capture_launches["run_program_cuda"],
+         **slice5_launches("run_program_cuda")},
         {"name": "maj_n", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/maj_n.cu",
          "replaces": "src/repro/kernels/maj_n.py:44",
@@ -1416,6 +1830,8 @@ def main() -> int:
          "launches_chip_model": chip_launches["maj_n"],
          "launches_sim": sim_launches["maj_n"],
          "launches_controller_injected": ctrl_inj_launches["maj_n"],
+         "launches_autotune_injected":
+             slice5["injected_launches"].get("maj_n", 0),
          "build_s": _build.BUILDS[maj_n.build_item()[0]]["seconds"]},
         {"name": "bitserial_add", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_add.cu",

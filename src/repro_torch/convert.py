@@ -1,10 +1,10 @@
 """State carried from the reference into the port.
 
 The reference's state is programs, success points, reliability maps,
-chip-model state and leaf data. These helpers take plain Python and NumPy
-values (never ``repro`` objects), so tests can feed the same program, the
-same characterization data, the same calibrated chip and the same
-simulated DRAM to both packages.
+chip-model state, tuned plans and leaf data. These helpers take plain
+Python and NumPy values (never ``repro`` objects), so tests can feed the
+same program, the same characterization data, the same calibrated chip,
+the same simulated DRAM and the same plan to both packages.
 """
 
 from __future__ import annotations
@@ -12,6 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.autotune import TunedPlan
+from repro_torch.autotune.tuner import PLAN_SCHEMA
+from repro_torch.backends import select_backend
 from repro_torch.core.charact import SuccessRateDb
 from repro_torch.core.chip import OpStats, PulsarChip
 from repro_torch.core.decoder import RowDecoder
@@ -109,3 +112,20 @@ def chip_from_reference(*, geometry, profile: str, banks, neutral,
         fields = {k: v for k, v in dict(stats).items() if k != "trace"}
         chip.stats = OpStats(**fields)
     return chip
+
+
+def plan_from_reference(plan, device="cuda") -> TunedPlan:
+    """The port's :class:`TunedPlan` from a reference plan's ``as_dict()``
+    payload (or anything with an ``as_dict()`` giving it). Its fused
+    backend becomes the port's backend of the same plane layout available
+    on ``device`` (``words-cpu*``, ``pallas-tpu*`` and ``shard-words``
+    become ``words-torch*`` on the CPU and ``vertical-cuda*`` on a CUDA
+    device; ``ref-vertical*`` keeps its name); every other knob, the
+    scores, the estimate and the profile carry over unchanged."""
+    d = dict(plan.as_dict() if hasattr(plan, "as_dict") else plan)
+    if not str(d["fused_backend"]).startswith("ref-vertical"):
+        d["fused_backend"] = select_backend(
+            require="fused", device=device,
+            layout=int(d["word_bits"])).name
+    d["schema"] = PLAN_SCHEMA
+    return TunedPlan.from_dict(d)

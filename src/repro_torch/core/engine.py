@@ -373,13 +373,17 @@ def _upload(wire: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class _Leaf:
     """One registered operand of an op graph: ``entry`` (a leaf-cache hit)
-    or ``wire`` (the record-time snapshot, already in padded wire form)."""
+    or ``wire`` (the record-time snapshot, already in padded wire form).
+    A snapshot that seeded a new cache entry keeps it as ``seed``, so the
+    flush uploads through the entry and the next flush over the same
+    buffer finds the tensor already on the device."""
 
-    __slots__ = ("wire", "entry", "nbytes")
+    __slots__ = ("wire", "entry", "seed", "nbytes")
 
-    def __init__(self, wire=None, entry=None, nbytes=0):
+    def __init__(self, wire=None, entry=None, nbytes=0, seed=None):
         self.wire = wire
         self.entry = entry
+        self.seed = seed
         self.nbytes = nbytes
 
 
@@ -478,7 +482,7 @@ class _OpGraph:
             if ckey is not None:                 # seed for the next flush
                 entry, ev = self.cache.insert(ckey, fp, wire)
                 self.cache_evictions += ev
-            self.leaves.append(_Leaf(wire=wire, entry=None, nbytes=nbytes))
+            self.leaves.append(_Leaf(wire=wire, nbytes=nbytes, seed=entry))
         self._fps.append(fp)
         self._pins.append(arr)
         return ("leaf", i)
@@ -661,6 +665,11 @@ class PulsarEngine:
         # attached); the disabled path is one `is None` check per flush.
         self.counters = CounterBank()
         self.tracer = None
+        # Autotuner hook: None (default) costs one `is None` check per
+        # flush; Device.autotune(online=True) installs a
+        # repro_torch.autotune.OnlineAutotuner whose on_flush() closes the
+        # measure->decide->apply loop at flush granularity.
+        self.autotuner = None
         # Reliability plane: calibrated-map planning plus the flush-time
         # injection + vote/retry loop. None (default) keeps every path
         # as it is — one `is None` check per op and per flush.
@@ -1308,7 +1317,8 @@ class PulsarEngine:
                     leaves.append(leaf.entry)
                 else:
                     staged_b += leaf.wire.nbytes
-                    leaves.append(leaf.wire)
+                    leaves.append(leaf.wire if leaf.seed is None
+                                  else leaf.seed)
             if self.tracer is not None:
                 sp_up.args["bytes_staged"] = staged_b
                 sp_up.args["bytes_skipped"] = skipped_b
@@ -1383,6 +1393,12 @@ class PulsarEngine:
             self.counters.inc("engine.flushes")
             self.counters.observe("engine.flush_lanes", g.n)
             self.counters.observe("engine.flush_ops", len(program.ops))
+        if self.autotuner is not None:
+            # Per-flush decision point (sync or on the flush worker, under
+            # the caller's stream): the online autotuner counts windows and
+            # takes counter deltas here; its own guard stops a re-tune
+            # from recursing.
+            self.autotuner.on_flush(self)
 
     def _resolve_cached_leaves(self, g: _OpGraph, pipeline, leaves) -> list:
         """Staged leaves -> int32 tensors on the engine's device:

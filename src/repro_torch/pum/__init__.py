@@ -22,9 +22,15 @@ The same surface as ``repro.pum`` for the slice ported so far:
   per-bank/per-subarray/per-column map on the charge-sharing kernel, then
   ``EngineConfig(reliability=...)`` (or ``Device.calibrate()``) plans
   replication from it and, with ``inject=True``, corrects injected faults
-  by replica voting on the MAJ-N kernel.
+  by replica voting on the MAJ-N kernel;
+* autotuning (``Device.autotune`` -> :class:`TunedPlan`, :class:`Tuner`,
+  :class:`WorkloadProfile`) — measure a workload under :func:`profile`,
+  search the execution knobs over the backends of the device's
+  ``torch.device`` and apply the winner live; outputs and
+  ``EngineStats`` stay bit-identical.
 """
 
+from repro_torch.autotune import TunedPlan, Tuner, WorkloadProfile
 from repro_torch.backends import (BackendSpec, available_backends,
                                   get_backend, register_backend,
                                   select_backend, unregister_backend)
@@ -54,6 +60,9 @@ __all__ = [
     "ReliabilityConfig",
     "ReliabilityMap",
     "Tracer",
+    "TunedPlan",
+    "Tuner",
+    "WorkloadProfile",
     "as_device",
     "asarray",
     "available_backends",

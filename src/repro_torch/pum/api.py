@@ -33,11 +33,6 @@ _ACTIVE: list["Device"] = []
 _DEFAULT: "Device | None" = None
 
 
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {slice_name}")
-
-
 class Device:
     """One PuM compute device: an engine plus its configuration.
 
@@ -182,8 +177,118 @@ class Device:
             self.config = cfg.replace(reliability=rcfg)
         return rmap
 
-    def autotune(self, *args, **kw):
-        raise _later_slice("Device.autotune", "the autotune slice")
+    def autotune(self, profile=None, *, apply: bool = True,
+                 cost_plane: bool = False, space=None, tuner=None,
+                 online: bool = False, window_flushes: int = 16,
+                 explore_every: int = 8, drift_threshold: float = 0.5,
+                 save=None):
+        """Tune this device's execution config from measured telemetry.
+
+        ``profile`` is a :class:`~repro_torch.autotune.WorkloadProfile`
+        (or a counter window to extract one from); by default it is taken
+        from the device's accumulated counters — run the workload under
+        :func:`profile` first (engine counters populate only while a
+        tracer is attached). The :class:`~repro_torch.autotune.Tuner`
+        searches the discrete config space over the backends available on
+        this device's ``torch.device`` and returns the frozen
+        :class:`~repro_torch.autotune.TunedPlan`; with ``apply=True``
+        (default) the plan's *execution* knobs — fused backend, plane
+        layout, auto-flush bounds, crossbar lookahead — are applied live
+        to this device. Execution knobs change only where/when programs
+        run: outputs and ``EngineStats`` are bit-identical to the static
+        config. ``cost_plane=True`` additionally applies the
+        REF-postponing recommendation, which changes the *modeled*
+        refresh schedule and therefore EngineStats — an explicit opt-in.
+
+        ``online=True`` installs an
+        :class:`~repro_torch.autotune.OnlineAutotuner` on the engine:
+        every ``window_flushes`` flushes (sync, or on the ``flush_async``
+        worker) it profiles the counter delta and re-tunes when the drift
+        detector fires (exploit) or every ``explore_every`` windows
+        (explore). ``save=`` persists the plan (``.json``/``.npz``, see
+        ``TunedPlan.save``). Returns the plan (``None`` with
+        ``online=True`` before the first window closes).
+        """
+        from repro_torch.autotune import (OnlineAutotuner, Tuner,
+                                          WorkloadProfile)
+        if not self.engine.fuse:
+            raise ValueError(
+                "autotune targets the fused execution pipeline; this "
+                "device runs eager (fuse=False)")
+        if tuner is None:
+            tuner = Tuner(space=space, drift_threshold=drift_threshold)
+        if online:
+            self.engine.autotuner = OnlineAutotuner(
+                self, tuner=tuner, window_flushes=window_flushes,
+                explore_every=explore_every,
+                drift_threshold=drift_threshold)
+            if profile is None:
+                return None  # first window closes at flush granularity
+        if profile is None:
+            profile = WorkloadProfile.from_device(self)
+        elif not isinstance(profile, WorkloadProfile):
+            profile = WorkloadProfile.from_counters(
+                profile, width=self.config.width,
+                word_bits=self.config.resolved_layout().word_bits)
+        plan = tuner.tune(profile, self.config)
+        if apply:
+            self._apply_plan(plan, cost_plane=cost_plane)
+        if online and self.engine.autotuner is not None:
+            self.engine.autotuner.plan = plan
+        if save is not None:
+            plan.save(save)
+        return plan
+
+    def _apply_plan(self, plan, *, cost_plane: bool = False,
+                    flush: bool = True) -> None:
+        """Reconfigure the live engine to a ``TunedPlan`` (the
+        ``calibrate()`` idiom: mutate the engine, drop stale caches,
+        replace ``self.config``). With ``flush=True`` pending graphs
+        flush first so backend/layout flips never split a recorded
+        program across lane formats; the online autotuner calls with
+        ``flush=False`` from inside the flush path and the
+        backend/layout switch is then deferred while graphs are
+        pending. A layout flip leaves the leaf cache as it is: its key
+        carries the layout, so a wire staged under one layout is never
+        served to a pipeline of the other."""
+        cfg = plan.apply(self.config, cost_plane=cost_plane)
+        # A fuse flip cannot be applied to a live engine (it would
+        # rebuild the whole execution pipeline mid-stream); the
+        # recommendation stays on the returned plan for the caller to
+        # construct a new device from.
+        if cfg.fuse != self.config.fuse:
+            cfg = cfg.replace(fuse=self.config.fuse)
+        eng = self.engine
+        if flush:
+            eng.flush_all()
+        with eng._lock:
+            eng.flush_threshold = cfg.flush_threshold
+            eng.flush_memory_bytes = cfg.flush_memory_bytes
+            eng.cmd_buffer_lookahead = cfg.cmd_buffer_lookahead
+            pending = bool(eng._inflight) or any(
+                g is not None and getattr(g, "ops", None)
+                for g in eng._slots.values())
+            if pending:
+                cfg = cfg.replace(fused_backend=self.config.fused_backend,
+                                  layout=self.config.layout)
+            else:
+                eng.fused_backend = cfg.fused_backend
+                eng.layout = cfg.resolved_layout()
+            if cost_plane and cfg.ref_postponing != eng.ref_postponing \
+                    and cfg.controller == "auto":
+                from repro_torch.controller import MemoryController
+                from repro_torch.core.cost_model import \
+                    CostModel as _EngineCost
+                eng.controller = MemoryController(
+                    n_banks=cfg.banks, postponing=cfg.ref_postponing,
+                    lookahead=cfg.cmd_buffer_lookahead)
+                eng.ref_postponing = cfg.ref_postponing
+                eng.cost = _EngineCost(row_bits=cfg.row_bits,
+                                       controller=eng.controller)
+            # Planning/batch caches were computed under the old config.
+            eng._best_cfg_cache.clear()
+            eng._batch_cache.clear()
+        self.config = cfg
 
     def close(self) -> None:
         """Shut the async flush worker down (waits for in-flight

@@ -87,10 +87,12 @@ class CounterBank:
         Mutating either bank afterwards never affects the other."""
         s = CounterBank()
         s._counters = dict(self._counters)
+        # Iterate over copies: the online autotuner takes windows on the
+        # flush worker while other threads record into the bank.
         s._hists = {name: {"count": h["count"], "total": h["total"],
                            "min": h["min"], "max": h["max"],
                            "buckets": dict(h["buckets"])}
-                    for name, h in self._hists.items()}
+                    for name, h in list(self._hists.items())}
         return s
 
     def delta(self, prev: "CounterBank") -> "CounterBank":
@@ -103,11 +105,11 @@ class CounterBank:
         two cumulative states, so the live bank's values are kept.
         Zero-change entries are dropped."""
         out = CounterBank()
-        for name, v in self._counters.items():
+        for name, v in list(self._counters.items()):
             dv = v - prev._counters.get(name, 0)
             if dv:
                 out._counters[name] = dv
-        for name, h in self._hists.items():
+        for name, h in list(self._hists.items()):
             p = prev._hists.get(name)
             count = h["count"] - (p["count"] if p else 0)
             if not count:

@@ -306,3 +306,120 @@ def test_controller_device_on_the_card(cuda):
     np.testing.assert_array_equal(outs[0], outs[1])
     assert devs[0].stats.as_dict() == devs[1].stats.as_dict()
     assert devs[0].stats.refresh_stall_ns > 0
+
+
+@pytest.mark.parametrize("app", ["bmi", "bitweaving", "triangle_count",
+                                 "kclique_star", "knn",
+                                 "image_segmentation"])
+def test_app_kernel_on_the_card(cuda, app):
+    """A Fig 20 app kernel on a CUDA device: its own NumPy check passes
+    and its result and ``EngineStats`` equal a CPU device's."""
+    import repro_torch.pum as pum
+    from repro_torch.core import realworld
+    from repro_torch.kernels import _build
+    from test_torch_apps import _app_cases
+    kw, fn = _app_cases()[app]
+    before = _build.LAUNCHES["run_program_cuda"]
+    dev = pum.device(mfr="M", **kw)
+    host = pum.device(mfr="M", device="cpu", **kw)
+    got, got_ms, _ = fn(realworld, dev)
+    want, want_ms, _ = fn(realworld, host)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert got_ms == want_ms
+    assert dev.stats.as_dict() == host.stats.as_dict()
+    assert _build.LAUNCHES["run_program_cuda"] > before
+
+
+def test_autotune_on_the_card_picks_the_kernels(cuda):
+    """Offline autotune on a CUDA device searches the hand-written
+    kernels' backends; the tuned device stays bit-exact and
+    stats-identical to a static one, across a live 32 -> 64 flip."""
+    import repro_torch.pum as pum
+    from repro_torch.autotune import TunedPlan
+    from test_torch_autotune import run_workload
+    static = pum.device(width=32)
+    want = run_workload(static, 32)
+    dev = pum.device(width=32)
+    with pum.profile(dev):
+        run_workload(dev, 32, seed=3)
+    plan = dev.autotune(apply=True)
+    assert plan.fused_backend in ("vertical-cuda", "vertical-cuda-64")
+    dev.reset_stats()
+    for g, w in zip(run_workload(dev, 32), want):
+        np.testing.assert_array_equal(g, w)
+    assert dev.stats.as_dict() == static.stats.as_dict()
+    dev._apply_plan(TunedPlan(fused_backend="vertical-cuda-64",
+                              word_bits=64))
+    assert dev.layout.word_bits == 64
+    dev.reset_stats()
+    static.reset_stats()
+    want = run_workload(static, 32)
+    for g, w in zip(run_workload(dev, 32), want):
+        np.testing.assert_array_equal(g, w)
+    assert dev.stats.as_dict() == static.stats.as_dict()
+
+
+def test_autotune_under_injection_on_the_card(cuda):
+    """Tuned against static with fault injection on the card: the replica
+    vote runs on the MAJ-N kernel on both sides, outputs stay bit-exact
+    and ``EngineStats`` equal."""
+    import repro_torch.pum as pum
+    from repro_torch.kernels import _build
+    from test_torch_autotune import run_workload
+    rmap = pum.calibrate("M", banks=16, n_subarrays=2, n_columns=32,
+                         n_patterns=2, seed=13, device="cuda")
+    rcfg = pum.ReliabilityConfig(map=rmap, inject=True, seed=5)
+    static = pum.device(width=32, reliability=rcfg)
+    want = run_workload(static, 32)
+    dev = pum.device(width=32, reliability=rcfg)
+    with pum.profile(dev):
+        run_workload(dev, 32, seed=3)
+    plan = dev.autotune(apply=True)
+    assert plan.fused_backend in ("vertical-cuda", "vertical-cuda-64")
+    dev.reset_stats()
+    before = _build.LAUNCHES["maj_n"]
+    for g, w in zip(run_workload(dev, 32), want):
+        np.testing.assert_array_equal(g, w)
+    assert _build.LAUNCHES["maj_n"] > before
+    assert dev.stats.as_dict() == static.stats.as_dict()
+
+
+def test_online_autotune_under_flush_async_on_a_side_stream(cuda):
+    """The online autotuner re-tunes from the flush worker while a client
+    flushes asynchronously under a side stream; the worker's kernels stay
+    on that stream and every output is bit-exact."""
+    import threading
+    import repro_torch.pum as pum
+    from repro_torch.kernels import _build
+    from repro_torch.telemetry import Tracer
+    dev = pum.device(width=32)
+    dev.engine.tracer = Tracer()
+    dev.autotune(online=True, window_flushes=2, explore_every=1)
+    side = torch.cuda.Stream()
+    seen = []
+    real = _build.stream_of
+
+    def stream_of(x):
+        h = real(x)
+        if threading.current_thread().name.startswith("pum-flush"):
+            seen.append(h)
+        return h
+
+    rng = np.random.default_rng(10)
+    _build.stream_of = stream_of
+    try:
+        with dev.client("side"), torch.cuda.stream(side):
+            for _ in range(6):
+                a = rng.integers(0, 2**64, 1 << 16, dtype=np.uint64)
+                b = rng.integers(0, 2**64, 1 << 16, dtype=np.uint64)
+                t = (dev.asarray(a) & b) | (dev.asarray(a) ^ b)
+                dev.flush_async().result(timeout=120)
+                np.testing.assert_array_equal(t.to_numpy(),
+                                              (a & b) | (a ^ b))
+    finally:
+        _build.stream_of = real
+        dev.engine.tracer = None
+        dev.close()
+    ot = dev.engine.autotuner
+    assert ot.windows == 3 and ot.retunes == 3 and not ot._busy
+    assert seen and set(seen) == {side.cuda_stream}

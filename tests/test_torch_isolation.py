@@ -5,7 +5,9 @@ both of them unimportable — and so do the chip model (``PulsarChip``,
 the executor, the bit-serial ALU, cold-boot destruction), the ``sim``
 backend, the bit-serial add kernel's dispatch, the controller
 (``repro_torch.controller``, a controller-priced flush), named clients,
-``flush_async`` and a captured program."""
+``flush_async`` and a captured program — and so do the Fig 20 app
+kernels (``repro_torch.core.realworld``, the ``pum_database`` example),
+the autotuner and ``Device.autotune``, offline and online."""
 
 from __future__ import annotations
 
@@ -103,6 +105,37 @@ def test_port_runs_with_jax_and_reference_unimportable():
         assert prog(a, a).tolist() == [2 * i for i in range(64)]
         assert prog.n_records == 1 and prog.n_replays == 1
         cdev.close()
+        # The app-kernel and autotune slice: the Fig 20 kernels, the
+        # example, Device.autotune offline and online.
+        from repro_torch.core import realworld
+        from repro_torch.autotune import Tuner, WorkloadProfile
+        from repro_torch.examples import pum_database
+        from repro_torch.telemetry import Tracer
+        bm = np.arange(3 * 16, dtype=np.uint64).reshape(3, 16) * 977
+        adev = pum.device(device="cpu")
+        got, ms, _ = realworld.bmi_active_users(adev, bm)
+        assert ms > 0
+        adj = np.triu(np.ones((12, 12), np.uint8), 1)
+        assert realworld.kclique_star(adev, adj + adj.T,
+                                      [(0, 1, 2)])[0] == 9
+        import contextlib, io
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = pum_database.main(device="cpu", n_users=64 * 64, days=3,
+                                    n_rows=1024, n_vertices=12)
+        assert out["triangle_count"][0] >= 0
+        with pum.profile(adev):
+            x = adev.asarray(np.arange(256, dtype=np.uint64))
+            ((x + 3) * x).to_numpy()
+        plan = adev.autotune()
+        assert isinstance(plan, pum.TunedPlan)
+        assert plan.fused_backend.startswith("words-torch")
+        assert isinstance(Tuner().tune(WorkloadProfile.from_device(adev),
+                                       adev.config), pum.TunedPlan)
+        adev.engine.tracer = Tracer()
+        adev.autotune(online=True, window_flushes=1)
+        for i in range(3):
+            assert (adev.asarray(x.to_numpy()) + i).to_numpy()[1] == 1 + i
+        assert adev.engine.autotuner.windows == 3
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
