@@ -108,7 +108,23 @@ into ``build/repro_torch/`` and then, failing on the first error:
     in named clients drive with ``flush_async`` (two rounds of prog16 at
     2M lanes): bit-exact against NumPy, merged stats equal to a serial
     run; prints windows and re-tunes;
-20. prints one JSON line of per-kernel results, the card's name and power
+20. the LM serve path (``lm_serve``): qwen1.5-0.5b at full width (24
+    layers, d 1024, padded vocab 153,600, 622,978,048 parameters drawn
+    from a ``torch.Generator`` on the card) in bfloat16 through
+    ``repro_torch.serve.engine.ServeEngine`` with the launcher's defaults
+    (max_batch 4, max_len 256), 8 requests x 16 prompt tokens x 16 new
+    tokens, three ways (PuM stop predicate sync and ``async_stop``, host
+    predicate): identical streams, the captured predicate replayed on
+    every decoding tick (one K2 launch and the same K1 launches per tick,
+    no ``flush.record`` span inside a tick); prints tok/s, TTFT, decode
+    step and stop-predicate ms per tick, admission per request, launches
+    and ``pum.stats.latency_ns``; then the same weights in float32 on the
+    card against the CPU (16-token prefill, 4 decode steps, logits within
+    1e-3, greedy tokens equal), the 10 smoke configs in float32 against
+    the CPU (forward, prefill, 3 decode steps, within 1e-4), K1/K2 at the
+    predicate's shapes against their plain versions, and the launcher
+    ``python -m repro_torch.launch.serve --arch qwen1.5-0.5b``;
+21. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -887,6 +903,381 @@ def apps_and_autotune(pum, device: str, ops16, want16, seed: int,
     return out
 
 
+SERVE_ARCH = "qwen1.5-0.5b"      # launch/serve.py's documented example
+SERVE_F32_TOL = 1e-3   # full width, card vs CPU, float32 logits (~0.6)
+SMOKE_F32_TOL = 1e-4   # the 10 smoke configs, card vs CPU, float32
+
+
+def serve_run(eng, Request, prompts, build, max_new: int) -> dict:
+    """Drive ``eng`` over ``prompts`` as ``run_until_drained`` does, one
+    ``tick()`` at a time, with the kernel counts set to 0 first; returns
+    the streams, the wall, the per-tick K1/K2 launches and the spans."""
+    import numpy as np
+    import torch
+    reset_launches(build)
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+    ticks = []
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        before = dict(build.LAUNCHES)
+        eng.tick()
+        ticks.append({k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                      for k in K12})
+    done = eng.run_until_drained()      # joins the last async predicate
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    wall = time.perf_counter() - t0
+    events = eng.tracer.events
+    tick_spans = [(a, b) for n, a, b, _ in events if n == "serve.tick"]
+
+    def ms(name):
+        return [(b - a) / 1e6 for n, a, b, _ in events if n == name]
+
+    records = sum(1 for n, a, b, _ in events if n == "flush.record"
+                  and any(t0 <= a and b <= t1 for t0, t1 in tick_spans))
+    ttft = [r.t_first - r.t_submit for r in done]
+    n_tok = sum(len(r.out_tokens) for r in done)
+    return {
+        "streams": sorted((r.rid, tuple(r.out_tokens)) for r in done),
+        "wall_s": wall, "tokens": n_tok, "tok_s": n_tok / wall,
+        "ttft_mean_ms": float(np.mean(ttft)) * 1e3,
+        "ttft_max_ms": float(np.max(ttft)) * 1e3,
+        "ticks": ticks, "decode_ms": ms("serve.decode"),
+        "stop_ms": ms("serve.stop_predicate"), "admit_ms": ms("serve.admit"),
+        "records_in_ticks": records,
+        "launches": {k: build.LAUNCHES.get(k, 0) for k in K12},
+        "pum_latency_ns": (eng.pum.stats.latency_ns
+                           if eng.pum is not None else None),
+        "replays": (eng._stop_prog.n_replays if eng.pum is not None
+                    else 0),
+    }
+
+
+def profile_ticks(eng, n_ticks: int) -> dict | None:
+    """``n_ticks`` steady ticks of ``eng`` timed on the host clock, then
+    ``n_ticks`` more under ``torch.profiler`` (CPU and CUDA activities):
+    the device time summed over the device-side events (kernels, copies,
+    memsets; one stream, so they do not overlap) and their count, per
+    tick; the idle share is 1 - device time / the unprofiled tick wall.
+    Also the profiled tick wall and the five most frequent device events
+    (name, count and ms per tick). ``None`` when the profiler saw no
+    device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        eng.tick()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+    dev = [(evt.key, evt.count, evt.self_device_time_total)
+           for evt in prof.key_averages()
+           if evt.device_type == DeviceType.CUDA]
+    dev_us = sum(us for _, _, us in dev)
+    if dev_us == 0:
+        return None
+    device_ms = dev_us / 1e3 / n_ticks
+    top = sorted(dev, key=lambda e: -e[1])[:5]
+    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
+            "device_ms": device_ms,
+            "idle_share": 1 - device_ms / wall_ms,
+            "device_ops": sum(n for _, n, _ in dev) / n_ticks,
+            "top_ops": [(k[:48], n / n_ticks, us / 1e3 / n_ticks)
+                        for k, n, us in top]}
+
+
+def lm_inputs(cfg, rng, b: int, t: int, device) -> dict:
+    """A seeded batch for ``cfg`` (frames and patches for the stub
+    frontends) on ``device``."""
+    import numpy as np
+    import torch
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int64))}
+    if cfg.encoder_decoder:
+        batch["frames"] = torch.as_tensor(
+            rng.standard_normal((b, t, cfg.d_model), np.float32) * 0.02)
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.d_model), np.float32) * 0.02)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def lm_parity(cfg, dev_params, cpu_params, batch, device, steps: int,
+              forward: bool) -> tuple[dict, bool]:
+    """Forward, prefill and ``steps`` greedy decode steps of ``cfg`` with
+    the same parameters on ``device`` and on the CPU; returns the max
+    abs logit error per stage and whether the greedy tokens agreed."""
+    import torch
+    from repro_torch.models import model as lm
+
+    def host(tree):
+        return {k: v.cpu() for k, v in tree.items()}
+
+    b = batch["tokens"].shape[0]
+    extra = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    t = batch["tokens"].shape[1] + extra
+    errs = {}
+    with torch.no_grad():
+        if forward:
+            got, _ = lm.forward(cfg, dev_params, batch)
+            want, _ = lm.forward(cfg, cpu_params, host(batch))
+            errs["forward"] = float((got.cpu() - want).abs().max())
+        got, gc, gm = lm.prefill(cfg, dev_params, batch, t + steps)
+        want, wc, wm = lm.prefill(cfg, cpu_params, host(batch), t + steps)
+        errs["prefill"] = float((got.cpu() - want).abs().max())
+        same = True
+        for i in range(steps):
+            gt = got[:, :cfg.vocab_size].argmax(-1)
+            wt = want[:, :cfg.vocab_size].argmax(-1)
+            same = same and torch.equal(gt.cpu(), wt)
+            pos = torch.full((b,), t + i, dtype=torch.long)
+            got, gc = lm.decode_step(cfg, dev_params, gc, gt, pos.to(device),
+                                     memory=gm)
+            want, wc = lm.decode_step(cfg, cpu_params, wc, wt, pos,
+                                      memory=wm)
+            errs[f"decode{i}"] = float((got.cpu() - want).abs().max())
+    return errs, same
+
+
+def lm_serve(device: str, build, stop_program, seed: int) -> dict:
+    """The LM serve phases on ``device`` (``"cuda"`` on the card; on the
+    CPU they rehearse at the arch's smoke config):
+
+    a. qwen1.5-0.5b at full width in bfloat16 (``init_params`` from a
+       ``torch.Generator`` seeded 0 on the device) through ``ServeEngine``
+       (max_batch 4, max_len 256, eos -1: the launcher's defaults): 8
+       requests of 16-token prompts from ``default_rng(0)``, 16 new tokens
+       each, run three ways (PuM stop predicate sync, ``async_stop``, host
+       predicate); the streams are identical, every decoding tick of the
+       PuM runs replays the captured predicate (one K2 launch, the same K1
+       launches each tick, no ``flush.record`` span inside a tick);
+    b. the same parameters in float32 on the device and on the CPU: a
+       16-token prefill and 4 decode steps, logits within
+       ``SERVE_F32_TOL`` and the greedy tokens equal;
+    c. all 10 smoke configs (``torch.Generator`` seed 0 on the CPU,
+       copied to the device): forward, prefill and 3 decode steps in
+       float32 within ``SMOKE_F32_TOL`` of the CPU;
+    d. K1 and K2 at the stop predicate's shapes against their plain
+       versions, timed;
+    e. the launcher, ``python -m repro_torch.launch.serve --arch
+       qwen1.5-0.5b``, in process."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.config.base import (ARCH_IDS, get_config,
+                                         get_smoke_config)
+    from repro_torch.kernels import bit_transpose, ref
+    from repro_torch.kernels import fused_program as fp
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as lm
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+    on_card = device != "cpu"
+    smoke = not on_card
+    dev = torch.device(device)
+    out = {}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are enabled: float32 checks would see TF32 error")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    # -- a. full width bf16 through ServeEngine, three ways -------------- #
+    cfg = get_smoke_config(SERVE_ARCH) if smoke else get_config(SERVE_ARCH)
+    t = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    sync()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"{n_params} parameters, count_params says {cfg.param_count()}")
+    print(f"serve {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, padded vocab {cfg.padded_vocab}, "
+          f"{n_params} parameters ({n_params * 4 / 2**30:.2f} GiB float32 "
+          f"masters) drawn on {device} in {init_s:.2f} s; compute "
+          f"{cfg.dtype}")
+    prng = np.random.default_rng(0)
+    prompts = [prng.integers(0, cfg.vocab_size, 16, dtype=np.int32)
+               for _ in range(8)]
+    kw = dict(max_batch=4, max_len=256, eos_id=-1, device=dev,
+              telemetry=True)
+    warm = ServeEngine(cfg, params=params, **kw)
+    serve_run(warm, Request, prompts[:1], build, max_new=2)
+    warm.close()
+    runs = {}
+    for label, mode in (("sync", {}), ("async_stop", {"async_stop": True}),
+                        ("host", {"pum_bulk": False})):
+        eng = ServeEngine(cfg, params=params, **kw, **mode)
+        runs[label] = r = serve_run(eng, Request, prompts, build,
+                                    max_new=16)
+        eng.close()
+        check(r["tokens"] == 128 and all(len(s) == 16
+                                         for _, s in r["streams"]),
+              f"serve {label}: {r['tokens']} tokens")
+        n_dec = len(r["decode_ms"])
+        if label != "host":
+            check(r["records_in_ticks"] == 0,
+                  f"serve {label}: {r['records_in_ticks']} flush.record "
+                  f"spans inside ticks (the predicate re-recorded)")
+            check(r["replays"] == n_dec,
+                  f"serve {label}: {r['replays']} replays for {n_dec} "
+                  f"decoding ticks")
+        if on_card and label == "sync":
+            decoding = [k for k in r["ticks"] if k["run_program_cuda"]]
+            check(len(decoding) == n_dec and all(
+                k["run_program_cuda"] == 1
+                and k["bit_transpose32"] == decoding[0]["bit_transpose32"]
+                > 0 for k in decoding),
+                  f"serve sync: K1/K2 launches per tick {r['ticks']}")
+        if on_card and label != "host":
+            check(r["launches"]["run_program_cuda"] == n_dec
+                  and r["launches"]["bit_transpose32"] > 0,
+                  f"serve {label}: launches {r['launches']} over {n_dec} "
+                  f"decoding ticks")
+        if label == "host":
+            check(all(v == 0 for v in r["launches"].values()),
+                  f"serve host: kernels launched {r['launches']}")
+        per_tick = {k: v / max(n_dec, 1) for k, v in r["launches"].items()}
+        print(f"serve {label}: {r['tokens']} tokens in {r['wall_s']:.3f} s "
+              f"= {r['tok_s']:.1f} tok/s, TTFT mean "
+              f"{r['ttft_mean_ms']:.1f} ms max {r['ttft_max_ms']:.1f} ms; "
+              f"{n_dec} decoding ticks, decode step "
+              f"{statistics.mean(r['decode_ms']):.3f} ms/tick (median "
+              f"{statistics.median(r['decode_ms']):.3f}), stop predicate "
+              f"{statistics.mean(r['stop_ms']):.3f} ms/tick (median "
+              f"{statistics.median(r['stop_ms']):.3f}), admission "
+              f"{sum(r['admit_ms']) / 8:.3f} ms/request; K1/K2 launches "
+              f"{r['launches']} ({per_tick['bit_transpose32']:.2f}/"
+              f"{per_tick['run_program_cuda']:.2f} per decoding tick), "
+              f"flush.record spans in ticks {r['records_in_ticks']}, "
+              f"replays {r['replays']}, pum.stats.latency_ns "
+              f"{r['pum_latency_ns']}")
+    check(runs["sync"]["streams"] == runs["async_stop"]["streams"]
+          == runs["host"]["streams"],
+          "serve: the three modes gave different token streams")
+    print("serve: token streams identical across sync, async_stop and "
+          "the host predicate")
+    out["serve"] = {k: {kk: vv for kk, vv in v.items()
+                        if kk not in ("streams", "ticks")}
+                    for k, v in runs.items()}
+    if on_card:
+        # Device busy and idle share over 8 + 8 steady ticks (4 slots
+        # busy, no admission): the decode step and the predicate's replay.
+        eng = ServeEngine(cfg, params=params, **kw)
+        for rid, p in enumerate(prompts[:4]):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=24))
+        eng.tick()
+        prof = profile_ticks(eng, 8)
+        eng.run_until_drained()
+        eng.close()
+        out["serve_profile"] = prof
+        print("serve sync, 8 steady ticks under torch.profiler: " + (
+            "device time not measured (the profiler saw no device events)"
+            if prof is None else
+            f"{prof['wall_ms']:.3f} ms/tick wall unprofiled "
+            f"({prof['profiled_wall_ms']:.3f} profiled), device busy "
+            f"{prof['device_ms']:.3f} ms/tick, idle share "
+            f"{prof['idle_share']:.3f}, {prof['device_ops']:.1f} device "
+            f"kernels and copies per tick; most frequent (name, per tick, "
+            f"ms per tick): " + "; ".join(
+                f"{k} {n:.1f} {ms:.3f}" for k, n, ms in prof["top_ops"])))
+    out["serve_launches"] = runs["sync"]["launches"]
+
+    # -- b. full width float32, device against CPU ---------------------- #
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t = time.perf_counter()
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev)
+    errs, same = lm_parity(cfg32, params, cpu_params, batch, dev, steps=4,
+                           forward=False)
+    err = max(errs.values())
+    print(f"serve {cfg.name} float32, {device} against CPU (prefill 2 x 16 "
+          f"tokens, 4 decode steps): max abs logit error {err:.3e} "
+          f"(bound {SERVE_F32_TOL:g}; {errs}), greedy tokens "
+          f"{'equal' if same else 'DIFFER'}, {time.perf_counter() - t:.1f} s")
+    check(err <= SERVE_F32_TOL, f"full-width float32 error {err}")
+    check(same, "full-width float32 greedy tokens differ from the CPU")
+    out["serve_f32_err"] = err
+    del cpu_params, params, batch
+
+    # -- c. the 10 smoke configs, device against CPU, float32 ----------- #
+    t = time.perf_counter()
+    worst = 0.0
+    for arch in ARCH_IDS:
+        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        cpu_p = lm.init_params(scfg, 0, device="cpu")
+        dev_p = tree_map(lambda x: x.to(dev), cpu_p)
+        batch = lm_inputs(scfg, np.random.default_rng(seed), 2, 16, dev)
+        errs, _ = lm_parity(scfg, dev_p, cpu_p, batch, dev, steps=3,
+                            forward=True)
+        e = max(errs.values())
+        worst = max(worst, e)
+        check(e <= SMOKE_F32_TOL, f"{arch} smoke float32: {errs}")
+    print(f"smoke configs ({len(ARCH_IDS)} archs, forward + prefill + 3 "
+          f"decode steps, float32) on {device} against CPU: max abs logit "
+          f"error {worst:.3e} (bound {SMOKE_F32_TOL:g}), "
+          f"{time.perf_counter() - t:.1f} s")
+    out["smoke_f32_err"] = worst
+
+    # -- d. K1/K2 at the stop predicate's shapes ------------------------ #
+    if on_card:
+        words = 1   # max_batch 4 lanes -> one 32-lane word per plane
+        x1 = torch.randint(-2**31, 2**31 - 1, (32, words), dtype=torch.int32,
+                           device=dev)
+        e1 = max_abs_err(bit_transpose.bit_transpose32_cuda(x1),
+                         ref.bit_transpose32(x1))
+        x2 = torch.randint(-2**31, 2**31 - 1,
+                           (stop_program.n_inputs, stop_program.width, words),
+                           dtype=torch.int32, device=dev)
+        e2 = max_abs_err(fp.run_program_cuda(stop_program, x2),
+                         fp.run_program_ref(stop_program, x2))
+        sync()
+        check(e1 == 0 and e2 == 0, f"K1/K2 at the serve shapes: {e1}, {e2}")
+        k1 = (cuda_ms(lambda: bit_transpose.bit_transpose32_cuda(x1), 200),
+              cuda_ms(lambda: ref.bit_transpose32(x1), 50),
+              2 * x1.numel() * 4 / HBM_BYTES_PER_S * 1e3)
+        from repro_torch.kernels import codegen
+        _, n_ops = codegen.generate(stop_program)
+        k2_bytes = 4 * words * stop_program.width * (
+            stop_program.n_inputs + len(stop_program.outputs))
+        k2 = (cuda_ms(lambda: fp.run_program_cuda(stop_program, x2), 200),
+              cuda_ms(lambda: fp.run_program_ref(stop_program, x2), 20),
+              max(k2_bytes / HBM_BYTES_PER_S,
+                  n_ops * words / ALU_OPS_PER_S) * 1e3)
+        print(f"K1 at the serve shape [32, {words}]: bit-exact, through the "
+              f"wrapper {k1[0]:.4f} ms, plain {k1[1]:.4f} ms, bound "
+              f"{k1[2]:.2e} ms; K2 on the stop predicate ({len(stop_program.ops)} "
+              f"ops, [{stop_program.n_inputs}, 32, {words}]): bit-exact, "
+              f"through the wrapper {k2[0]:.4f} ms, plain {k2[1]:.4f} ms, "
+              f"bound {k2[2]:.2e} ms")
+        out["serve_k1"], out["serve_k2"] = k1, k2
+
+    # -- e. the launcher, as a user runs it ----------------------------- #
+    argv = ["--arch", SERVE_ARCH, "--device", device]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(launch_serve.main(argv + (["--smoke"] if smoke else [])) == 0,
+              "the launcher failed")
+    line = buf.getvalue().strip()
+    check(line.startswith(f"[serve] {SERVE_ARCH}: 8 requests, 128 tokens"),
+          f"launcher printed {line!r}")
+    print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
+          f"{line}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -909,6 +1300,9 @@ def main() -> int:
                                          codegen, maj_n, ref)
         from repro_torch.kernels import fused_program as fp
         from repro_torch.reliability import FaultInjector
+        from repro_torch.config.base import get_smoke_config
+        from repro_torch.pum import capture as capture_mod
+        from repro_torch.serve.engine import ServeEngine
         k4 = importlib.import_module("repro_torch.kernels.bitserial_add")
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
@@ -950,11 +1344,18 @@ def main() -> int:
         program_from_reference(*random_program(rng, w, fp.OPCODES),
                                32 if w <= 32 else 64)
         for w in (8, 16, 32, 33, 64)]
+    # The serve path's captured stop predicate, recorded on the CPU by a
+    # smoke-size engine with the launcher's max_batch/max_len/eos.
+    serve_programs = programs_of(capture_mod, lambda: ServeEngine(
+        get_smoke_config(SERVE_ARCH), max_batch=4, max_len=256, eos_id=-1,
+        device="cpu").close())
+    check(len(serve_programs) == 1, f"{len(serve_programs)} stop programs")
     t0 = time.perf_counter()
     _build.build_many([bit_transpose.build_item(), charge_share.build_item(),
                        maj_n.build_item(), k4.build_item()]
                       + [codegen.build_item(p) for p in
-                         list(main_programs.values()) + random_programs])
+                         list(main_programs.values()) + random_programs
+                         + serve_programs])
     build_s = time.perf_counter() - t0
     print(f"build: {len(_build.BUILDS)} libraries in {build_s:.1f} s "
           f"(parallel nvcc)")
@@ -1791,7 +2192,10 @@ def main() -> int:
     slice5 = apps_and_autotune(pum, "cuda", ops16, want16, SEED,
                                rel_cases["prog16 2M lanes"][0])
 
-    # -- 20. results ----------------------------------------------------- #
+    # -- 20. the LM serve path ------------------------------------------ #
+    serve = lm_serve("cuda", _build, serve_programs[0], SEED)
+
+    # -- 21. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -1801,9 +2205,16 @@ def main() -> int:
         {"name": "bit_transpose32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bit_transpose.cu",
          "replaces": "src/repro/kernels/bit_transpose.py:46",
-         "launches": launches["bit_transpose32"], "max_abs_err": k1_err,
+         "launches": launches["bit_transpose32"]
+         + serve["serve_launches"]["bit_transpose32"],
+         "launches_main": launches["bit_transpose32"],
+         "launches_serve": serve["serve_launches"]["bit_transpose32"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None,
+         "serve_ms": serve["serve_k1"][0],
+         "serve_plain_ms": serve["serve_k1"][1],
+         "serve_bound_ms": serve["serve_k1"][2],
          "launches_controller": ctrl_launches["bit_transpose32"],
          "launches_async": async_launches["bit_transpose32"],
          "launches_capture": capture_launches["bit_transpose32"],
@@ -1812,7 +2223,14 @@ def main() -> int:
         {"name": "run_program_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/codegen.py",
          "replaces": "src/repro/kernels/fused_program.py:655",
-         "launches": launches["run_program_cuda"], "max_abs_err": k2_err,
+         "launches": launches["run_program_cuda"]
+         + serve["serve_launches"]["run_program_cuda"],
+         "launches_main": launches["run_program_cuda"],
+         "launches_serve": serve["serve_launches"]["run_program_cuda"],
+         "serve_ms": serve["serve_k2"][0],
+         "serve_plain_ms": serve["serve_k2"][1],
+         "serve_bound_ms": serve["serve_k2"][2],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes" if k2_bound_b >= k2_bound_o else "operations",
          "library_ms": k2_lib, "build_s": k2_build,

@@ -41,10 +41,6 @@ def _never(device) -> bool:
     return False
 
 
-def _always(device) -> bool:
-    return True
-
-
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
     """One registered backend.
@@ -73,7 +69,8 @@ class BackendSpec:
     capabilities: frozenset[str]
     max_width: int = 32
     priority: int = 0
-    available: Callable[[Any], bool] = _always
+    available: Callable[[Any], bool] = dataclasses.field(
+        default_factory=lambda: lambda device: True)
     layouts: frozenset[int] = frozenset({32})
 
 
@@ -87,14 +84,17 @@ def register_backend(name: str, builder: Callable[..., Any], *,
                      layouts=(32,)) -> BackendSpec:
     """Register (or replace) a backend under ``name`` and return its spec.
 
+    Each registration gets its own default ``available`` function, so a
+    re-registration with the same builder and knobs still gives a spec
+    unequal to the old one, and the pipeline cache builds anew for it.
     The built-in names are ``fast``, ``sim``, ``words-torch``,
     ``vertical-cuda``,
     ``ref-vertical`` and their ``-64`` layout variants."""
+    knobs = {} if available is None else {"available": available}
     spec = BackendSpec(name=name, builder=builder,
                        capabilities=frozenset(capabilities),
                        max_width=max_width, priority=priority,
-                       available=available or _always,
-                       layouts=frozenset(int(b) for b in layouts))
+                       layouts=frozenset(int(b) for b in layouts), **knobs)
     _REGISTRY[name] = spec
     return spec
 

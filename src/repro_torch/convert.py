@@ -1,7 +1,7 @@
 """State carried from the reference into the port.
 
 The reference's state is programs, success points, reliability maps,
-chip-model state, tuned plans and leaf data. These helpers take plain
+chip-model state, tuned plans, leaf data and LM parameters. These helpers take plain
 Python and NumPy values (never ``repro`` objects), so tests can feed the
 same program, the same characterization data, the same calibrated chip,
 the same simulated DRAM and the same plan to both packages.
@@ -22,6 +22,8 @@ from repro_torch.core.geometry import DramGeometry
 from repro_torch.core.profiles import PROFILES
 from repro_torch.kernels.fused_program import FusedOp, FusedProgram
 from repro_torch.kernels.plane_layout import get_layout
+from repro_torch.models.model import init_params
+from repro_torch.models.tree import tree_map
 from repro_torch.reliability.calibration import ReliabilityMap
 
 
@@ -129,3 +131,32 @@ def plan_from_reference(plan, device="cuda") -> TunedPlan:
             layout=int(d["word_bits"])).name
     d["schema"] = PLAN_SCHEMA
     return TunedPlan.from_dict(d)
+
+
+def params_from_reference(cfg, params, device="cuda"):
+    """The port's LM parameters from the reference's ``init_params(cfg,
+    key)`` tree with NumPy (or array-like) leaves: the same nested dicts,
+    the same stacked ``[L, ...]`` layer leaves, the same float32 values,
+    copied onto ``device`` (the card unless the caller names another). The tree must match the port's for ``cfg``
+    key for key and shape for shape."""
+    want = init_params(cfg, device="meta")
+
+    def keys(tree, path=""):
+        if isinstance(tree, dict):
+            return {k2 for k, v in tree.items()
+                    for k2 in keys(v, f"{path}/{k}")}
+        return {path}
+
+    if keys(dict(params)) != keys(want):
+        raise ValueError(
+            f"reference params do not match {cfg.name}'s tree: "
+            f"{sorted(keys(dict(params)) ^ keys(want))}")
+
+    def one(shape_t, leaf):
+        arr = np.array(leaf, dtype=np.float32)
+        if arr.shape != tuple(shape_t.shape):
+            raise ValueError(f"leaf of shape {arr.shape} where "
+                             f"{tuple(shape_t.shape)} is expected")
+        return torch.from_numpy(arr).to(device)
+
+    return tree_map(one, want, params)

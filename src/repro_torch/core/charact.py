@@ -84,6 +84,29 @@ def query_points(mfr: str) -> list[tuple[int, int, str]]:
     return out
 
 
+def figure_points(mfr: str) -> list[tuple[int, int, str]]:
+    """Every ``(m_inputs, n_rg, plan_style)`` the paper's figures and
+    claims query for ``mfr`` (``max`` plans, as ``SuccessRateDb.point``
+    defaults): MAJ3 against N_RG (Fig 14, ``tests/test_system.py``'s
+    headline claim) and MAJ-m up to the profile's fan-in cap against
+    power-of-two N_RG (Fig 15)."""
+    prof = PROFILES[mfr]
+    out = []
+    for m in (3, 5, 7, 9):
+        if m > prof.max_maj_fan_in:
+            continue
+        out.extend((m, n, "max") for n in (4, 8, 16, 32)
+                   if m <= n <= prof.max_simul_rows)
+    return out
+
+
+def table_points(mfr: str) -> list[tuple[int, int, str]]:
+    """The points the checked-in table holds for ``mfr``: the engine's
+    planning queries, then the figures' (each once)."""
+    pts = query_points(mfr)
+    return pts + [p for p in figure_points(mfr) if p not in pts]
+
+
 class SuccessRateDb:
     """Success points keyed on ``(mfr, m_inputs, n_rg, plan_style)``.
 

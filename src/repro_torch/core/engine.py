@@ -57,6 +57,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+import warnings
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 
@@ -75,6 +76,16 @@ from repro_torch.kernels.fused_program import (FusedOp, FusedProgram,
 from repro_torch.kernels.plane_layout import (PlaneLayout, get_layout,
                                               layout_for_width)
 from repro_torch.telemetry import NULL_TRACER, CounterBank
+
+
+def _warn_deprecated(method: str, replacement: str) -> None:
+    """One-line compat-shim warning: the PulsarEngine op methods survive
+    for out-of-tree callers, but in-package code goes through
+    repro_torch.pum."""
+    warnings.warn(
+        f"PulsarEngine.{method}() is deprecated; use {replacement} "
+        f"(repro_torch.pum — migration table in docs/api.md)",
+        DeprecationWarning, stacklevel=3)
 
 
 def resolve_device(device) -> torch.device:
@@ -312,6 +323,14 @@ class _LeafCache:
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self._bytes = 0
 
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of host wire held (the LRU budget counts these)."""
+        return self._bytes
+
     def lookup(self, key, fp) -> "_LeafCacheEntry | None":
         with self._lock:
             e = self._entries.get(key)
@@ -362,6 +381,11 @@ class _LeafCache:
     def drop_device(self, entry: "_LeafCacheEntry") -> None:
         with self._lock:
             entry.dev = None
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
 
 
 def _upload(wire: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -1541,6 +1565,74 @@ class PulsarEngine:
             return (a != 0).astype(np.uint64)
         pc = _vec_popcount(a)
         return pc & np.uint64(1)
+
+    # -- deprecated compat shim (the pre-pum method surface) ------------ #
+    # Each method is a one-line delegate that warns per call; semantics
+    # are those of the private implementations above.
+
+    def and_(self, a, b):
+        """Deprecated: use ``&`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("and_", "PumArray.__and__ (a & b)")
+        return self._and(a, b)
+
+    def or_(self, a, b):
+        """Deprecated: use ``|`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("or_", "PumArray.__or__ (a | b)")
+        return self._or(a, b)
+
+    def xor(self, a, b):
+        """Deprecated: use ``^`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("xor", "PumArray.__xor__ (a ^ b)")
+        return self._xor(a, b)
+
+    def add(self, a, b):
+        """Deprecated: use ``+`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("add", "PumArray.__add__ (a + b)")
+        return self._add(a, b)
+
+    def sub(self, a, b):
+        """Deprecated: use ``-`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("sub", "PumArray.__sub__ (a - b)")
+        return self._sub(a, b)
+
+    def mul(self, a, b):
+        """Deprecated: use ``*`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("mul", "PumArray.__mul__ (a * b)")
+        return self._mul(a, b)
+
+    def div(self, a, b):
+        """Deprecated: use ``//`` on :class:`repro_torch.pum.PumArray`.
+        Unsigned floor division; lanes dividing by zero yield 0."""
+        _warn_deprecated("div", "PumArray.__floordiv__ (a // b)")
+        return self._div(a, b)
+
+    def mod(self, a, b):
+        """Deprecated: use ``%`` on :class:`repro_torch.pum.PumArray`.
+        Unsigned remainder, priced as one division; lanes with a zero
+        divisor yield 0."""
+        _warn_deprecated("mod", "PumArray.__mod__ (a % b)")
+        return self._mod(a, b)
+
+    def divmod(self, a, b):
+        """Deprecated: use ``divmod()`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("divmod", "PumArray.__divmod__ (divmod(a, b))")
+        return self._divmod(a, b)
+
+    def less_than(self, a, b):
+        """Deprecated: use ``<`` on :class:`repro_torch.pum.PumArray`."""
+        _warn_deprecated("less_than", "PumArray.__lt__ (a < b)")
+        return self._less_than(a, b)
+
+    def popcount(self, a, width: int | None = None):
+        """Deprecated: use :meth:`repro_torch.pum.PumArray.popcount`."""
+        _warn_deprecated("popcount", "PumArray.popcount()")
+        return self._popcount(a, width)
+
+    def reduce_bits(self, a, kind: str, width: int | None = None):
+        """Deprecated: use :meth:`repro_torch.pum.PumArray.reduce_bits`.
+        Per-element AND/OR/XOR reduction across the element's bits."""
+        _warn_deprecated("reduce_bits", "PumArray.reduce_bits(kind)")
+        return self._reduce_bits(a, kind, width)
 
     def _alu_load2(self, a: np.ndarray, b: np.ndarray):
         """Both operands into sim-ALU vertical registers (one row budget:

@@ -484,8 +484,10 @@ def get_pipeline(program: FusedProgram, device="cuda", donate: bool = False,
         raise ValueError(
             f"backend {backend!r} does not support the {wb}-bit plane "
             f"layout (declares {sorted(spec.layouts)})")
-    # Cache on the resolved BackendSpec, not the name: re-registering a
-    # name creates a new spec, so stale pipelines are never served.
+    # Cache on the resolved BackendSpec, not the name. Every registration
+    # gets a fresh default ``available`` function, so a re-registered
+    # spec never equals the old one even with the same builder and knobs,
+    # and the cache builds its pipeline anew.
     return _cached_pipeline(program, spec, donate)
 
 

@@ -55,8 +55,16 @@ class PlaneLayout:
     def nbytes_per_word(self) -> int:
         return self.word_bits // 8
 
+    def word_scalar(self, value: int, xp):
+        """``value`` as a 0-d lane-dtype scalar of array module ``xp``
+        (``numpy`` or ``torch``)."""
+        if xp is np:
+            return np.asarray(value, self.dtype_name)
+        return xp.tensor(value, dtype=getattr(xp, self.dtype_name))
+
     def mask(self, width: int) -> int:
-        """``width``-bit all-ones as a Python int."""
+        """``width``-bit all-ones as a Python int (callers wrap it with
+        :meth:`word_scalar` for the module they compute in)."""
         return (1 << width) - 1
 
     @property
@@ -68,6 +76,11 @@ class PlaneLayout:
             return int.from_bytes(bytes([byte]) * reps, "little")
 
         return rep(0x55), rep(0x33), rep(0x0F), rep(0x01)
+
+    @property
+    def popcount_shift(self) -> int:
+        """Final SWAR shift: the count accumulates in the top byte."""
+        return self.word_bits - 8
 
     # ------------------------------------------------------------------ #
     # Wire format: every pipeline ABI is flat int32 arrays

@@ -124,6 +124,12 @@ def charge_share(v: torch.Tensor, caps: torch.Tensor, *, vdd: float,
     return num / den
 
 
+def multi_row_broadcast(src: torch.Tensor, n: int) -> torch.Tensor:
+    """Multi-RowInit dataplane: one row plane -> n identical planes (a
+    broadcast view, as the reference's ``jnp.broadcast_to``)."""
+    return src[None].expand((n,) + tuple(src.shape))
+
+
 # --------------------------------------------------------------------- #
 # Vertical-layout plane algebra (fused-program building blocks)
 #

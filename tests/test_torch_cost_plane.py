@@ -128,17 +128,20 @@ def _reference_points(mfr: str) -> list[dict]:
     db = default_db()
     return [dict(dataclasses.asdict(db.point(mfr, m, n, plan_style=style)),
                  plan_style=style)
-            for m, n, style in tcharact.query_points(mfr)]
+            for m, n, style in tcharact.table_points(mfr)]
 
 
 def test_success_table_matches_reference_default_db():
-    """The points a default ``mfr="M"`` device queries, regenerated from
-    the reference's Monte-Carlo ``default_db()``, equal the checked-in
-    table exactly."""
+    """The points a default ``mfr="M"`` device queries, and those the
+    paper's figures query, regenerated from the reference's Monte-Carlo
+    ``default_db()``, equal the checked-in table exactly."""
     want = _reference_points("M")
     table = [p for p in tcharact.load_points() if p["mfr"] == "M"]
     assert table == want
-    assert len(want) == 8  # 7 pow2 planning points + the FracDRAM MAJ3@4
+    # 7 pow2 planning points + the FracDRAM MAJ3@4, then the figures'
+    # max-plan MAJ3@8/16, MAJ5@8/16 and MAJ7@8/16 (MAJ3@4 is already
+    # there; Mfr M's fan-in cap is 7 and its row cap 16).
+    assert len(want) == 14
 
 
 def test_success_table_covers_every_planning_query():

@@ -423,3 +423,73 @@ def test_online_autotune_under_flush_async_on_a_side_stream(cuda):
     ot = dev.engine.autotuner
     assert ot.windows == 3 and ot.retunes == 3 and not ot._busy
     assert seen and set(seen) == {side.cuda_stream}
+
+
+def _serve_streams(cfg, params, device, **kw):
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params=params, max_batch=2, max_len=32, eos_id=3,
+                      device=device, **kw)
+    rng = np.random.default_rng(4)
+    for rid in range(4):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, 6, dtype=np.int32), max_new_tokens=5))
+    done = eng.run_until_drained(max_ticks=100)
+    replays = eng._stop_prog.n_replays if eng.pum is not None else 0
+    eng.close()
+    return sorted((r.rid, tuple(r.out_tokens)) for r in done), replays
+
+
+@pytest.mark.parametrize("async_stop", [False, True])
+def test_serve_engine_on_the_card_matches_cpu(cuda, async_stop):
+    """Float32 smoke weights on the card and on the CPU give the same
+    token streams; every replay of the stop predicate on the card is one
+    fused-program launch."""
+    import dataclasses
+    from repro_torch.config.base import get_smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.tree import tree_map
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"),
+                              dtype="float32")
+    params = lm.init_params(cfg, 0, device="cpu")
+    want, _ = _serve_streams(cfg, params, "cpu")
+    before = ops.LAUNCHES["run_program_cuda"]
+    got, replays = _serve_streams(cfg, tree_map(lambda t: t.to(cuda), params),
+                                  cuda, async_stop=async_stop)
+    assert got == want
+    assert replays > 0
+    # The warm-up call at construction records and runs the predicate
+    # once; every tick after it replays.
+    assert ops.LAUNCHES["run_program_cuda"] - before == replays + 1
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "hymba-1.5b",
+                                  "deepseek-v2-236b", "mamba2-130m",
+                                  "seamless-m4t-large-v2"])
+def test_lm_on_the_card_matches_cpu(cuda, arch):
+    """Prefill and decode of a float32 smoke config on the card within
+    1e-4 of the CPU (matmul sum order; no TF32)."""
+    import dataclasses
+    from repro_torch.config.base import get_smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.tree import tree_map
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = lm.init_params(cfg, 0, device="cpu")
+    dparams = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (2, 12)))}
+    if cfg.encoder_decoder:
+        batch["frames"] = torch.as_tensor(
+            rng.standard_normal((2, 12, cfg.d_model), np.float32) * 0.02)
+    want, wc, wm = lm.prefill(cfg, params, batch, 16)
+    got, gc, gm = lm.prefill(cfg, dparams,
+                             {k: v.to(cuda) for k, v in batch.items()}, 16)
+    assert (got.cpu() - want).abs().max() < 1e-4
+    for i in range(3):
+        tok = want[:, :cfg.vocab_size].argmax(-1)
+        pos = torch.full((2,), 12 + i)
+        want, wc = lm.decode_step(cfg, params, wc, tok, pos, memory=wm)
+        got, gc = lm.decode_step(cfg, dparams, gc, tok.to(cuda),
+                                 pos.to(cuda), memory=gm)
+        assert (got.cpu() - want).abs().max() < 1e-4

@@ -7,7 +7,9 @@ backend, the bit-serial add kernel's dispatch, the controller
 (``repro_torch.controller``, a controller-priced flush), named clients,
 ``flush_async`` and a captured program — and so do the Fig 20 app
 kernels (``repro_torch.core.realworld``, the ``pum_database`` example),
-the autotuner and ``Device.autotune``, offline and online."""
+the autotuner and ``Device.autotune``, offline and online — and so does
+the LM serve path: the configs, the models of every family, the
+``ServeEngine`` with its captured stop predicate, and the launcher."""
 
 from __future__ import annotations
 
@@ -36,6 +38,10 @@ def test_no_jax_or_reference_imports():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    packages = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+                for p in files[:-1]}
+    assert {"config", "configs", "models", "serve", "launch",
+            "distributed"} <= packages
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -136,6 +142,32 @@ def test_port_runs_with_jax_and_reference_unimportable():
         for i in range(3):
             assert (adev.asarray(x.to_numpy()) + i).to_numpy()[1] == 1 + i
         assert adev.engine.autotuner.windows == 3
+        # The LM serve path: configs, every model family, the engine
+        # with its captured stop predicate, and the launcher.
+        from repro_torch.config.base import (ARCH_IDS, get_config,
+                                             get_smoke_config)
+        from repro_torch.distributed.constraints import maybe_shard
+        from repro_torch.launch import serve as launch_serve
+        from repro_torch.models import model as lm
+        from repro_torch.serve.engine import Request, ServeEngine
+        assert get_config("qwen1.5-0.5b").param_count() == 622978048
+        for arch in ("mamba2-130m", "deepseek-v2-236b", "hymba-1.5b"):
+            cfg = get_smoke_config(arch)
+            params = lm.init_params(cfg, 0, device="cpu")
+            toks = torch.zeros((1, 8), dtype=torch.long)
+            logits, _ = lm.forward(cfg, params, {"tokens": toks})
+            assert maybe_shard(logits).shape == (1, 8, cfg.padded_vocab)
+        eng = ServeEngine(get_smoke_config("qwen1.5-0.5b"), max_batch=2,
+                          max_len=32, eos_id=-1, device="cpu")
+        for rid in range(3):
+            eng.submit(Request(rid=rid, prompt=np.arange(5, dtype=np.int32),
+                               max_new_tokens=3))
+        assert [len(r.out_tokens) for r in eng.run_until_drained()] == [3] * 3
+        assert eng._stop_prog.n_records == 1
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert launch_serve.main(["--arch", "qwen3-1.7b", "--smoke",
+                                      "--requests", "2", "--max-new", "2",
+                                      "--device", "cpu"]) == 0
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
