@@ -124,7 +124,25 @@ into ``build/repro_torch/`` and then, failing on the first error:
     the CPU (forward, prefill, 3 decode steps, within 1e-4), K1/K2 at the
     predicate's shapes against their plain versions, and the launcher
     ``python -m repro_torch.launch.serve --arch qwen1.5-0.5b``;
-21. prints one JSON line of per-kernel results, the card's name and power
+21. the LM train path (``lm_train``): ``repro_torch.train.trainer.
+    train_loop`` at qwen1.5-0.5b full width (bfloat16 over float32
+    masters, remat on) on the launcher's synthetic data (8 x 256 tokens,
+    lr 3e-4, warmup 20) for 30 steps, the loss falling (prints step ms,
+    tokens/s, peak memory and a ``torch.profiler`` reading of 3 steady
+    steps); 5 steps with int8 compression (``err`` finite and nonzero);
+    the 1-bit path on one step's full-width gradients on a fused card
+    device against an eager CPU device (wire bitmaps, ``deq``, ``err`` and
+    a ``pum_sign_majority3`` bit-identical, ``EngineStats`` equal; K1/K2
+    launch, and are held at the path's largest shapes against their plain
+    versions); a ``CheckpointManager`` round trip of that state (10 GB,
+    restored bit for bit; free disk checked first); float32 card against
+    CPU (one full-width step on 1 x 17 tokens, then the 10 smoke configs
+    with int8 compression off and on: loss within 1e-5 relative, gradient
+    leaves within 1e-3 of their max|g|); and the launcher
+    ``python -m repro_torch.launch.train``: a simulated preemption exits
+    42 with step 5 saved, a rerun resumes to step 12 with its step-5 loss
+    within 1e-4 of an uninterrupted run's, then 3 steps at full width;
+22. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -954,29 +972,29 @@ def serve_run(eng, Request, prompts, build, max_new: int) -> dict:
     }
 
 
-def profile_ticks(eng, n_ticks: int) -> dict | None:
-    """``n_ticks`` steady ticks of ``eng`` timed on the host clock, then
-    ``n_ticks`` more under ``torch.profiler`` (CPU and CUDA activities):
-    the device time summed over the device-side events (kernels, copies,
-    memsets; one stream, so they do not overlap) and their count, per
-    tick; the idle share is 1 - device time / the unprofiled tick wall.
-    Also the profiled tick wall and the five most frequent device events
-    (name, count and ms per tick). ``None`` when the profiler saw no
-    device events."""
+def profile_ticks(step, n_ticks: int) -> dict | None:
+    """``n_ticks`` steady calls of ``step`` (a serve tick, a train step)
+    timed on the host clock, then ``n_ticks`` more under
+    ``torch.profiler`` (CPU and CUDA activities): the device time summed
+    over the device-side events (kernels, copies, memsets; one stream, so
+    they do not overlap) and their count, per call; the idle share is 1 -
+    device time / the unprofiled call's wall. Also the profiled wall and
+    the five most frequent device events (name, count and ms per call).
+    ``None`` when the profiler saw no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_ticks):
-        eng.tick()
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_ticks):
-            eng.tick()
+            step()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
     dev = [(evt.key, evt.count, evt.self_device_time_total)
@@ -1179,7 +1197,7 @@ def lm_serve(device: str, build, stop_program, seed: int) -> dict:
         for rid, p in enumerate(prompts[:4]):
             eng.submit(Request(rid=rid, prompt=p, max_new_tokens=24))
         eng.tick()
-        prof = profile_ticks(eng, 8)
+        prof = profile_ticks(eng.tick, 8)
         eng.run_until_drained()
         eng.close()
         out["serve_profile"] = prof
@@ -1275,6 +1293,502 @@ def lm_serve(device: str, build, stop_program, seed: int) -> dict:
           f"launcher printed {line!r}")
     print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
           f"{line}")
+    return out
+
+
+TRAIN_ARCH = "qwen1.5-0.5b"      # launch/train.py's documented example
+TRAIN_F32_LOSS_RTOL = 1e-5   # float32 loss, card vs CPU, relative
+TRAIN_F32_GRAD_TOL = 1e-3    # float32 gradient leaf, card vs CPU, of max|g|
+RESUME_LOSS_RTOL = 1e-4      # resumed against uninterrupted step-5 loss
+
+
+def tree_errs(got, want) -> dict:
+    """Per leaf (by path), max |got - want| over the leaf's max |want|."""
+    from repro_torch.models.tree import tree_items
+    out = {}
+    for (path, g), (_, w) in zip(tree_items(got), tree_items(want)):
+        w = w.detach().float().cpu()
+        scale = float(w.abs().max()) or 1.0
+        out["/".join(map(str, path))] = float(
+            (g.detach().float().cpu() - w).abs().max()) / scale
+    return out
+
+
+def tree_equal(a, b) -> bool:
+    """Every leaf of ``a`` equals ``b``'s bit for bit (on the host)."""
+    from repro_torch.models.tree import tree_items
+    la, lb = tree_items(a), tree_items(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and torch_equal(x, y)
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return torch.equal(x.detach().cpu(), y.detach().cpu())
+
+
+def launcher_run(args: list, device: str) -> tuple:
+    """``python -m repro_torch.launch.train`` in a child process (a
+    simulated preemption ends the process); returns (exit code, {step:
+    loss}, stdout)."""
+    import os
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--device", device] + args, cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    losses = {int(ln.split()[1]): float(ln.split()[3])
+              for ln in out.stdout.splitlines() if ln.startswith("step ")}
+    check(out.returncode in (0, 42),
+          f"launcher {args}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    return out.returncode, losses, out.stdout
+
+
+def lm_train(device: str, build, seed: int) -> dict:
+    """The LM train phases on ``device`` (``"cuda"`` on the card; on the
+    CPU they rehearse at the arch's smoke config):
+
+    a. ``train_loop`` at qwen1.5-0.5b full width (24 layers, 622,978,048
+       parameters, bfloat16 compute over float32 masters, remat on) on
+       the launcher's data and schedule (``DataConfig(seq_len=256,
+       global_batch=8)``, synthetic; lr 3e-4, warmup 20) for 30 steps:
+       losses finite, the mean of the last 5 below the first 5's; step
+       ms, tokens/s, peak memory and a ``torch.profiler`` reading of 3
+       steady steps;
+    b. the same for 5 steps with int8 compression: the ``err`` buffers
+       finite and nonzero;
+    c. the 1-bit path on one step's full-width gradients: a fused
+       ``pum.device(width=32)`` on ``device`` against an eager CPU
+       device, wire bitmaps, ``deq`` and ``err`` bit-identical and
+       ``EngineStats`` equal; ``pum_sign_majority3`` over the sign
+       bitmaps of one leaf's gradients on three seeded batches, the same
+       two ways; K1/K2 launch, and are held at the path's largest shapes
+       against their plain versions;
+    d. a ``CheckpointManager`` round trip of b's state (params, ``mu``,
+       ``nu``, ``err``): restored equal bit for bit (free disk checked
+       first);
+    e. float32 on ``device`` against the CPU: one train step at full width
+       on batch 1 x 17 tokens (loss within ``TRAIN_F32_LOSS_RTOL``, each
+       gradient leaf within ``TRAIN_F32_GRAD_TOL`` of its max|g|), then
+       the 10 smoke configs one step each with int8 compression off and
+       on (the same bounds; ``err`` within one int8 quantum more);
+    f. the launcher: ``--smoke --steps 12 --ckpt-every 5
+       --simulate-preemption 7`` exits 42 with step 5 saved, a rerun
+       resumes at 5 and ends at 12 with its step-5 loss within
+       ``RESUME_LOSS_RTOL`` of an uninterrupted run; then a few steps at
+       full width."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    import repro_torch.pum as pum
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config.base import (ARCH_IDS, TrainConfig, get_config,
+                                         get_smoke_config)
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.data.pipeline import (DataConfig, Prefetcher,
+                                           SyntheticLM, make_source)
+    from repro_torch.kernels import codegen, ops, ref
+    from repro_torch.kernels import fused_program as fp
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as lm
+    from repro_torch.models.tree import tree_items, tree_leaves, tree_map
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import adamw_init
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    out = {}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are enabled: float32 checks would see TF32 error")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    cfg = get_config(TRAIN_ARCH) if on_card else get_smoke_config(TRAIN_ARCH)
+    dcfg = DataConfig(seq_len=256, global_batch=8, vocab_size=cfg.vocab_size)
+    tokens_per_step = dcfg.seq_len * dcfg.global_batch
+
+    # -- a. full width, 30 steps --------------------------------------- #
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=20, total_steps=30,
+                       checkpoint_every=0)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    step_s = []
+    data = Prefetcher(make_source(dcfg))
+    t = time.perf_counter()
+    try:
+        params, opt, hist = trainer.train_loop(
+            cfg, tcfg, data, 30, hooks=trainer.TrainLoopHooks(
+                on_step=lambda s, m, dt: step_s.append(dt)), device=dev)
+    finally:
+        data.close()
+    wall = time.perf_counter() - t
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"{n_params} parameters, count_params says {cfg.param_count()}")
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == 30 and all(math.isfinite(x) for x in losses),
+          f"train losses {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"train loss did not fall: {first} -> {last}")
+    med = statistics.median(step_s[2:])
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    print(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params} parameters, compute {cfg.dtype}, remat {cfg.remat}; "
+          f"30 steps of {dcfg.global_batch} x {dcfg.seq_len} tokens in "
+          f"{wall:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean "
+          f"of first 5 {first:.4f}, last 5 {last:.4f}); step "
+          f"{med * 1e3:.1f} ms (median of steps 2-29; first "
+          f"{step_s[0] * 1e3:.0f} ms), {tokens_per_step / med:.0f} tok/s; "
+          f"peak memory allocated "
+          + (f"{peak / 2**30:.2f} GiB" if peak is not None else
+             "not measured (CPU)"))
+    out["train"] = {"losses": losses, "step_ms": med * 1e3,
+                    "first_step_ms": step_s[0] * 1e3,
+                    "tok_s": tokens_per_step / med, "peak_bytes": peak,
+                    "wall_s": wall}
+    if on_card:
+        step_fn = trainer.build_train_step(cfg, tcfg)
+        batches = iter([SyntheticLM(dcfg).batch(30 + i) for i in range(6)])
+        state = {"params": params, "opt": opt}
+
+        def one_step():
+            state["params"], state["opt"], m = step_fn(
+                state["params"], state["opt"],
+                trainer.device_batch(next(batches), dev))
+            m["loss"].item()
+
+        prof = profile_ticks(one_step, 3)
+        out["train_profile"] = prof
+        print("train, 3 steady steps under torch.profiler: " + (
+            "device time not measured (the profiler saw no device events)"
+            if prof is None else
+            f"{prof['wall_ms']:.1f} ms/step wall unprofiled "
+            f"({prof['profiled_wall_ms']:.1f} profiled), device busy "
+            f"{prof['device_ms']:.1f} ms/step, idle share "
+            f"{prof['idle_share']:.3f}, {prof['device_ops']:.1f} device "
+            f"kernels and copies per step; most frequent (name, per step, "
+            f"ms per step): " + "; ".join(
+                f"{k} {n:.1f} {ms:.3f}" for k, n, ms in prof["top_ops"])))
+        del step_fn, state, batches
+    del params, opt
+    free()
+
+    # -- b. int8 compression, 5 steps ---------------------------------- #
+    tcfg_c = dataclasses.replace(tcfg, grad_compression=True, total_steps=5)
+    data = Prefetcher(make_source(dcfg))
+    try:
+        params, opt, hist = trainer.train_loop(cfg, tcfg_c, data, 5,
+                                               device=dev)
+    finally:
+        data.close()
+    errs = tree_leaves(opt["err"])
+    nonzero = sum(bool(e.any()) for e in errs)
+    check(all(bool(torch.isfinite(e).all()) for e in errs) and nonzero > 0,
+          "int8 err buffers not finite or all zero")
+    check(all(math.isfinite(h["loss"]) for h in hist), "int8 losses")
+    print(f"train int8 compression, 5 steps: loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}; err buffers finite, {nonzero} of "
+          f"{len(errs)} leaves nonzero, max |err| "
+          f"{max(float(e.abs().max()) for e in errs):.3e}")
+
+    # -- c. the 1-bit path on the card against the CPU ------------------ #
+    small = [np.random.default_rng(seed + i).standard_normal(300)
+             .astype(np.float32) for i in range(3)]
+
+    def flows(pdev):
+        gc.compress_grads_sign_with_feedback(
+            {"g": torch.from_numpy(small[0])},
+            {"g": torch.zeros(300)}, device=pdev)
+        gc.pum_sign_majority3(*[gc.pack_bitmap(x < 0) for x in small],
+                              device=pdev)
+
+    programs = programs_of(engine_mod, lambda: flows(
+        pum.device(width=32, fuse=True, device="cpu")))
+    if on_card:
+        build.build_many(sorted({codegen.build_item(p) for p in programs}))
+    grads = trainer.loss_and_grads(cfg, tcfg_c, params, trainer.device_batch(
+        SyntheticLM(dcfg).batch(100), dev))[2]
+    err = opt["err"]
+    shapes = {"bit_transpose32": [], "run_program_cuda": []}
+    real_k1, real_k2 = ops.bit_transpose32_cuda, ops.run_program_cuda
+
+    def spy_k1(x):
+        shapes["bit_transpose32"].append(tuple(x.shape))
+        return real_k1(x)
+
+    def spy_k2(program, x):
+        shapes["run_program_cuda"].append((program, tuple(x.shape)))
+        return real_k2(program, x)
+
+    wires = {"card": [], "cpu": []}
+    real_wire = gc.pum_wire_bitmap
+
+    def run_1bit(label, pdev, g, e):
+        def spy_wire(s, m, d=None):
+            w = real_wire(s, m, d)
+            wires[label].append(w)
+            return w
+        gc.pum_wire_bitmap = spy_wire
+        try:
+            t = time.perf_counter()
+            res = gc.compress_grads_sign_with_feedback(g, e, device=pdev)
+            sync()
+            return res, time.perf_counter() - t
+        finally:
+            gc.pum_wire_bitmap = real_wire
+
+    card_dev = pum.device(width=32, fuse=True, device=dev)
+    host_dev = pum.device(width=32, fuse=False, device="cpu")
+    reset_launches(build)
+    ops.bit_transpose32_cuda, ops.run_program_cuda = spy_k1, spy_k2
+    try:
+        (cq, ce), card_s = run_1bit("card", card_dev, grads, err)
+        leaf_path = ("layers", "mlp", "w_gate")
+        votes = []
+        for i in range(3):
+            g3 = trainer.loss_and_grads(cfg, tcfg_c, params,
+                                        trainer.device_batch(
+                                            SyntheticLM(dcfg).batch(200 + i),
+                                            dev))[2]
+            votes.append(gc.pack_bitmap(
+                (dict(tree_items(g3))[leaf_path] < 0).cpu().numpy()))
+            del g3
+        t = time.perf_counter()
+        maj_card = gc.pum_sign_majority3(*votes, device=card_dev)
+        maj_card_s = time.perf_counter() - t
+    finally:
+        ops.bit_transpose32_cuda, ops.run_program_cuda = real_k1, real_k2
+    launches = {k: build.LAUNCHES.get(k, 0) for k in K12}
+    out["train_launches"] = launches
+    (hq, he), host_s = run_1bit("cpu", host_dev,
+                                tree_map(lambda x: x.cpu(), grads),
+                                tree_map(lambda x: x.cpu(), err))
+    t = time.perf_counter()
+    maj_host = gc.pum_sign_majority3(*votes, device=host_dev)
+    maj_host_s = time.perf_counter() - t
+    check(len(wires["card"]) == len(wires["cpu"]) == len(tree_leaves(grads))
+          and all(np.array_equal(a, b)
+                  for a, b in zip(wires["card"], wires["cpu"])),
+          "1-bit wire bitmaps differ between the card and the CPU")
+    check(tree_equal(cq, hq) and tree_equal(ce, he),
+          "1-bit deq/err differ between the card and the CPU")
+    check(all(x.device.type == dev.type for x in tree_leaves(cq)),
+          "1-bit deq did not come back onto the gradients' device")
+    check(np.array_equal(maj_card, maj_host),
+          "pum_sign_majority3 differs between the card and the CPU")
+    want_maj = (votes[0] & votes[1]) | (votes[1] & votes[2]) | \
+        (votes[0] & votes[2])
+    check(np.array_equal(maj_host, want_maj), "MAJ3 differs from NumPy")
+    check(card_dev.stats.as_dict() == host_dev.stats.as_dict(),
+          f"1-bit EngineStats differ: {card_dev.stats} vs {host_dev.stats}")
+    if on_card:
+        check(all(launches[k] > 0 for k in K12),
+              f"1-bit path: launches {launches}")
+    n_words = sum(len(w) for w in wires["card"])
+    print(f"train 1-bit path on {device} (fused) against an eager CPU "
+          f"device: {len(wires['card'])} gradient leaves, {n_words} wire "
+          f"words, wire bitmaps, deq and err bit-identical, EngineStats "
+          f"equal ({card_dev.stats.latency_ns} ns modeled); "
+          f"pum_sign_majority3 over {'/'.join(leaf_path)} sign bitmaps of "
+          f"3 seeded batches ({len(votes[0])} words) equal on both and to "
+          f"NumPy; wall {card_s:.2f} s card / {host_s:.2f} s CPU "
+          f"(MAJ3 {maj_card_s:.3f} / {maj_host_s:.3f} s); K1/K2 launches "
+          f"{launches}")
+    if on_card:
+        g = max(shapes["bit_transpose32"], key=lambda s: s[1])
+        x1 = torch.randint(-2**31, 2**31 - 1, g, dtype=torch.int32,
+                           device=dev)
+        e1 = max_abs_err(ops.bit_transpose32(x1), ref.bit_transpose32(x1))
+        prog, s2 = max(shapes["run_program_cuda"], key=lambda p: p[1][2])
+        x2 = torch.randint(-2**31, 2**31 - 1, s2, dtype=torch.int32,
+                           device=dev)
+        e2 = max_abs_err(fp.run_program_cuda(prog, x2),
+                         fp.run_program_ref(prog, x2))
+        sync()
+        check(e1 == 0 and e2 == 0, f"K1/K2 at the train shapes: {e1}, {e2}")
+        _, n_ops = codegen.generate(prog)
+        k2_bytes = 4 * s2[2] * prog.width * (prog.n_inputs
+                                             + len(prog.outputs))
+        out["train_k1"] = (
+            cuda_ms(lambda: ops.bit_transpose32(x1), 50),
+            cuda_ms(lambda: ref.bit_transpose32(x1), 3, rounds=3),
+            2 * x1.numel() * 4 / HBM_BYTES_PER_S * 1e3, g)
+        out["train_k2"] = (
+            cuda_ms(lambda: fp.run_program_cuda(prog, x2), 50),
+            cuda_ms(lambda: fp.run_program_ref(prog, x2), 3, rounds=3),
+            max(k2_bytes / HBM_BYTES_PER_S,
+                n_ops * s2[2] / ALU_OPS_PER_S) * 1e3, s2)
+        print(f"K1 at the train path's largest shape {list(g)}: bit-exact, "
+              f"through the wrapper {out['train_k1'][0]:.4f} ms, plain "
+              f"{out['train_k1'][1]:.4f} ms, bound {out['train_k1'][2]:.4f} "
+              f"ms; K2 ({len(prog.ops)} ops) at {list(s2)}: bit-exact, "
+              f"through the wrapper {out['train_k2'][0]:.4f} ms, plain "
+              f"{out['train_k2'][1]:.4f} ms, bound {out['train_k2'][2]:.4f} "
+              f"ms")
+        del x1, x2
+    del grads, cq, ce, hq, he, votes
+
+    # -- d. checkpoint round trip at full width ------------------------ #
+    ck_dir = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck_dir.mkdir(parents=True)
+    need = sum(x.numel() * x.element_size()
+               for x in tree_leaves(params) + tree_leaves(opt))
+    free_b = shutil.disk_usage(ck_dir).free
+    check(free_b > 1.2 * need, f"checkpoint needs {need} bytes, {free_b} "
+                               f"free under {ck_dir}")
+    try:
+        mgr = CheckpointManager(str(ck_dir))
+        t = time.perf_counter()
+        mgr.save(5, params, opt)
+        copy_s = time.perf_counter() - t
+        mgr.wait()
+        save_s = time.perf_counter() - t
+        written = sum(f.stat().st_size for f in ck_dir.rglob("*")
+                      if f.is_file())
+        t = time.perf_counter()
+        p2, o2, meta = mgr.restore(5, params, opt)
+        sync()
+        restore_s = time.perf_counter() - t
+        check(meta["step"] == 5 and tree_equal(p2, params)
+              and tree_equal(o2, opt),
+              "checkpoint restore differs from the saved state")
+        check(all(x.device.type == dev.type for x in tree_leaves(p2)),
+              "checkpoint restored onto the wrong device")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    print(f"train checkpoint (params, mu, nu, err; {need} bytes of state, "
+          f"{written} bytes written): restored bit for bit on {device}; save "
+          f"{save_s:.1f} s (device-to-host copy {copy_s:.1f} s, free "
+          f"{free_b / 2**30:.0f} GiB), restore {restore_s:.1f} s")
+    out["train_ckpt"] = {"bytes": written, "save_s": save_s,
+                         "copy_s": copy_s, "restore_s": restore_s}
+    del params, opt, p2, o2, errs
+    free()
+
+    # -- e. float32, device against the CPU ----------------------------- #
+    def f32_step(c, cpu_p, batch, compression):
+        """(loss rel error, worst gradient leaf error, worst err leaf
+        error in quanta) of one float32 train step of ``c`` on the
+        device against the CPU, from the same params."""
+        t_cfg = TrainConfig(grad_compression=compression, warmup_steps=1)
+        dev_p = tree_map(lambda x: x.detach().to(dev), cpu_p)
+        hb = trainer.device_batch(batch, "cpu")
+        db = trainer.device_batch(batch, dev)
+        _, _, want = trainer.loss_and_grads(c, t_cfg, cpu_p, hb)
+        _, _, got = trainer.loss_and_grads(c, t_cfg, dev_p, db)
+        g_err = max(tree_errs(got, want).values())
+        ho = adamw_init(cpu_p)
+        if compression:
+            ho["err"] = gc.init_error(cpu_p)
+        do = tree_map(lambda x: x.to(dev), ho)
+        step = trainer.build_train_step(c, t_cfg)
+        _, ho, hm = step(cpu_p, ho, hb)
+        _, do, dm = step(dev_p, do, db)
+        l_err = abs(float(dm["loss"]) - float(hm["loss"])) / abs(
+            float(hm["loss"]))
+        e_err = 0.0
+        if compression:
+            for (path, a), (_, b), (_, w) in zip(
+                    tree_items(do["err"]), tree_items(ho["err"]),
+                    tree_items(want)):
+                m = float(w.abs().max()) or 1.0
+                d = float((a.cpu() - b).abs().max())
+                e_err = max(e_err, d / (m * (1 / 127 + TRAIN_F32_GRAD_TOL)))
+        return l_err, g_err, e_err
+
+    t = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu_p = lm.init_params(cfg32, 0, device="cpu")
+    batch = {"tokens": np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, 17)).astype(np.int32)}
+    l_err, g_err, _ = f32_step(cfg32, cpu_p, batch, False)
+    print(f"train {cfg.name} float32, {device} against CPU (one train step, "
+          f"1 x 17 tokens): loss rel error {l_err:.2e} (bound "
+          f"{TRAIN_F32_LOSS_RTOL:g}), worst gradient leaf {g_err:.2e} of its "
+          f"max|g| (bound {TRAIN_F32_GRAD_TOL:g}), "
+          f"{time.perf_counter() - t:.1f} s")
+    check(l_err <= TRAIN_F32_LOSS_RTOL and g_err <= TRAIN_F32_GRAD_TOL,
+          f"full-width float32 train step: loss {l_err}, grads {g_err}")
+    out["train_f32"] = (l_err, g_err)
+    del cpu_p
+    t = time.perf_counter()
+    worst = [0.0, 0.0, 0.0]
+    for arch in ARCH_IDS:
+        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        sb = SyntheticLM(DataConfig(seq_len=16, global_batch=2,
+                                    vocab_size=scfg.vocab_size)).batch(0)
+        sb.update({k: v.cpu().numpy() for k, v in lm_inputs(
+            scfg, np.random.default_rng(seed), 2, 16, "cpu").items()
+            if k != "tokens"})
+        for compression in (False, True):
+            e = f32_step(scfg, lm.init_params(scfg, 0, device="cpu"), sb,
+                         compression)
+            check(e[0] <= TRAIN_F32_LOSS_RTOL and e[1] <= TRAIN_F32_GRAD_TOL
+                  and e[2] <= 1.0,
+                  f"{arch} smoke float32 train step (compression "
+                  f"{compression}): {e}")
+            worst = [max(a, b) for a, b in zip(worst, e)]
+    print(f"train smoke configs ({len(ARCH_IDS)} archs x int8 compression "
+          f"off/on, one float32 step) on {device} against CPU: loss rel "
+          f"error {worst[0]:.2e}, worst gradient leaf {worst[1]:.2e} of its "
+          f"max|g|, err within {worst[2]:.2f} of (1/127 + "
+          f"{TRAIN_F32_GRAD_TOL:g}) max|g|, {time.perf_counter() - t:.1f} s")
+    out["train_smoke_f32"] = worst
+
+    # -- f. the launcher: preemption, resume, full width --------------- #
+    ck_dir.mkdir(parents=True)
+    try:
+        base = ["--smoke", "--log-every", "1", "--steps", "12",
+                "--ckpt-every", "5"]
+        t = time.perf_counter()
+        rc, pre, _ = launcher_run(base + ["--ckpt-dir", str(ck_dir / "a"),
+                                          "--simulate-preemption", "7"],
+                                  device)
+        saved = CheckpointManager(str(ck_dir / "a")).all_steps()
+        check(rc == 42 and saved == [5] and sorted(pre) == list(range(7)),
+              f"preempted launcher: exit {rc}, saved {saved}, steps "
+              f"{sorted(pre)}")
+        rc, res, res_out = launcher_run(base + ["--ckpt-dir",
+                                                str(ck_dir / "a")], device)
+        check(rc == 0 and sorted(res) == list(range(5, 12)),
+              f"resumed launcher: exit {rc}, steps {sorted(res)}")
+        rc, full, _ = launcher_run(base + ["--ckpt-dir", str(ck_dir / "b")],
+                                   device)
+        check(rc == 0 and sorted(full) == list(range(12)),
+              f"uninterrupted launcher: exit {rc}, steps {sorted(full)}")
+        rel = abs(res[5] - full[5]) / abs(full[5])
+        check(rel <= RESUME_LOSS_RTOL,
+              f"resumed step-5 loss {res[5]} against {full[5]}")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    print(f"train launcher (--smoke): --simulate-preemption 7 exited 42 with "
+          f"step 5 saved; the rerun resumed at 5 and ended at 12 "
+          f"({res_out.strip().splitlines()[-1]}); step-5 loss {res[5]:.4f} "
+          f"against {full[5]:.4f} uninterrupted (rel {rel:.1e}, bound "
+          f"{RESUME_LOSS_RTOL:g}), step-11 {res[11]:.4f} against "
+          f"{full[11]:.4f}; {time.perf_counter() - t:.1f} s for 3 runs")
+    argv = ["--arch", TRAIN_ARCH, "--steps", "3", "--log-every", "1",
+            "--device", device] + ([] if on_card else ["--smoke"])
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        check(launch_train.main(argv) == 0, "the train launcher failed")
+    lines = buf.getvalue().strip().splitlines()
+    check(lines[-1].startswith(f"[train] {TRAIN_ARCH}: loss")
+          and "over 3 steps" in lines[-1], f"launcher printed {lines}")
+    print(f"launcher (python -m repro_torch.launch.train "
+          f"{' '.join(argv)}), {time.perf_counter() - t:.1f} s: "
+          + " | ".join(lines))
     return out
 
 
@@ -2195,7 +2709,10 @@ def main() -> int:
     # -- 20. the LM serve path ------------------------------------------ #
     serve = lm_serve("cuda", _build, serve_programs[0], SEED)
 
-    # -- 21. results ----------------------------------------------------- #
+    # -- 21. the LM train path ------------------------------------------ #
+    train = lm_train("cuda", _build, SEED)
+
+    # -- 22. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -2206,9 +2723,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bit_transpose.cu",
          "replaces": "src/repro/kernels/bit_transpose.py:46",
          "launches": launches["bit_transpose32"]
-         + serve["serve_launches"]["bit_transpose32"],
+         + serve["serve_launches"]["bit_transpose32"]
+         + train["train_launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
          "launches_serve": serve["serve_launches"]["bit_transpose32"],
+         "launches_train": train["train_launches"]["bit_transpose32"],
+         "train_ms": train["train_k1"][0],
+         "train_plain_ms": train["train_k1"][1],
+         "train_bound_ms": train["train_k1"][2],
+         "train_shape": list(train["train_k1"][3]),
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None,
@@ -2224,9 +2747,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/codegen.py",
          "replaces": "src/repro/kernels/fused_program.py:655",
          "launches": launches["run_program_cuda"]
-         + serve["serve_launches"]["run_program_cuda"],
+         + serve["serve_launches"]["run_program_cuda"]
+         + train["train_launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
          "launches_serve": serve["serve_launches"]["run_program_cuda"],
+         "launches_train": train["train_launches"]["run_program_cuda"],
+         "train_ms": train["train_k2"][0],
+         "train_plain_ms": train["train_k2"][1],
+         "train_bound_ms": train["train_k2"][2],
+         "train_shape": list(train["train_k2"][3]),
          "serve_ms": serve["serve_k2"][0],
          "serve_plain_ms": serve["serve_k2"][1],
          "serve_bound_ms": serve["serve_k2"][2],

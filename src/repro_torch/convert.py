@@ -160,3 +160,17 @@ def params_from_reference(cfg, params, device="cuda"):
         return torch.from_numpy(arr).to(device)
 
     return tree_map(one, want, params)
+
+
+def opt_state_from_reference(cfg, opt, device="cuda") -> dict:
+    """The port's AdamW state from the reference's (``adamw_init`` or a
+    train step's, with NumPy or array-like leaves): ``mu`` and ``nu``
+    (and ``err``, the int8 error feedback, when present) as
+    :func:`params_from_reference` carries the weights, ``step`` as an
+    int32 scalar, all on ``device`` (the card unless the caller names
+    another)."""
+    out = {k: params_from_reference(cfg, opt[k], device=device)
+           for k in ("mu", "nu", "err") if k in opt}
+    out["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                               dtype=torch.int32, device=device)
+    return out

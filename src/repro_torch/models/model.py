@@ -24,6 +24,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.constraints import (gather_layer_params,
                                                  maybe_shard)
@@ -191,19 +192,32 @@ def _sum_aux(auxs: list[dict], device) -> dict:
     return out
 
 
+def _remat(cfg, body):
+    """``body`` under ``cfg.remat == "full"``: its activations are not kept
+    for the backward pass but recomputed there (the reference's
+    ``jax.checkpoint`` of the same per-layer scan body)."""
+    if cfg.remat != "full":
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
 def _decoder_stack(cfg, params, x, positions):
     """Decoder over the stacked layers (train / full-sequence path)."""
     windows = _window_schedule(cfg)
     for i in range(cfg.first_dense_layers):
         x, _ = _layer_fwd(cfg, params[f"dense_layer_{i}"], x, positions,
                           int(windows[i]), moe_layer=False)
-    auxs = []
-    n_scan = cfg.n_layers - cfg.first_dense_layers
-    for j in range(n_scan):
+
+    def body(h, j):
         lp = gather_layer_params(cfg, layer_slice(params["layers"], j))
-        x, aux = _layer_fwd(cfg, lp, x, positions,
-                            int(windows[cfg.first_dense_layers + j]),
-                            moe_layer=cfg.moe)
+        return _layer_fwd(cfg, lp, h, positions,
+                          int(windows[cfg.first_dense_layers + j]),
+                          moe_layer=cfg.moe)
+
+    body = _remat(cfg, body)
+    auxs = []
+    for j in range(cfg.n_layers - cfg.first_dense_layers):
+        x, aux = body(x, j)
         auxs.append(aux)
     return x, _sum_aux(auxs, x.device)
 
@@ -211,12 +225,17 @@ def _decoder_stack(cfg, params, x, positions):
 def _encoder_stack(cfg, params, frames):
     b, t = frames.shape[:2]
     positions = torch.arange(t, device=frames.device).expand(b, t)
-    h = frames
-    for j in range(cfg.n_encoder_layers):
+
+    def body(h, j):
         lp = layer_slice(params["enc_layers"], j)
         h = h + attn.attention(cfg, lp["attn"], apply_norm(cfg, h, lp["ln1"]),
                                positions, causal=False, window=0)
-        h = h + swiglu(apply_norm(cfg, h, lp["ln2"]), lp["mlp"])
+        return h + swiglu(apply_norm(cfg, h, lp["ln2"]), lp["mlp"])
+
+    body = _remat(cfg, body)
+    h = frames
+    for j in range(cfg.n_encoder_layers):
+        h = body(h, j)
     return apply_norm(cfg, h, params["enc_final_norm"])
 
 
@@ -231,14 +250,17 @@ def _cross_attention(cfg, xp, x, positions, memory):
 
 def _decoder_stack_xattn(cfg, params, x, positions, memory):
     """Enc-dec decoder: self-attn + cross-attn + FFN per layer."""
-    n_scan = cfg.n_layers - cfg.first_dense_layers
-    for j in range(n_scan):
+    def body(h, j):
         lp = layer_slice(params["layers"], j)
         xp = layer_slice(params["xattn_layers"], j)
-        x = x + attn.attention(cfg, lp["attn"], apply_norm(cfg, x, lp["ln1"]),
+        h = h + attn.attention(cfg, lp["attn"], apply_norm(cfg, h, lp["ln1"]),
                                positions, causal=True, window=0)
-        x = _cross_attention(cfg, xp, x, positions, memory)
-        x = x + swiglu(apply_norm(cfg, x, lp["ln2"]), lp["mlp"])
+        h = _cross_attention(cfg, xp, h, positions, memory)
+        return h + swiglu(apply_norm(cfg, h, lp["ln2"]), lp["mlp"])
+
+    body = _remat(cfg, body)
+    for j in range(cfg.n_layers - cfg.first_dense_layers):
+        x = body(x, j)
     return x, _zero_aux(x.device)
 
 
@@ -268,8 +290,8 @@ def forward(cfg, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
 
 def loss_fn(cfg, params: Params, batch: dict, *, z_loss: float = 1e-4,
             moe_aux: float = 1e-2) -> tuple[torch.Tensor, dict]:
-    """Next-token cross entropy; batch['tokens'] is [B, T+1] (forward
-    only: the backward pass and the trainer come with the train slice)."""
+    """Next-token cross entropy; batch['tokens'] is [B, T+1]. Autograd
+    differentiates it end to end (``repro_torch.train.trainer``)."""
     tokens = batch["tokens"]
     inner = dict(batch)
     inner["tokens"] = tokens[:, :-1]

@@ -27,3 +27,19 @@ def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_items(tree: Any, path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``(path, leaf)`` pairs in JAX's flatten order: dict keys sorted,
+    lists and tuples by index; a path holds the keys and indices from the
+    root. Sums over leaves follow this order to round as the reference's
+    do, and checkpoints name leaves by it."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree)
+                for item in tree_items(v, path + (i,))]
+    if tree is None:
+        return []
+    return [(path, tree)]

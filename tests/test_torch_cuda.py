@@ -493,3 +493,54 @@ def test_lm_on_the_card_matches_cpu(cuda, arch):
         got, gc = lm.decode_step(cfg, dparams, gc, tok.to(cuda),
                                  pos.to(cuda), memory=gm)
         assert (got.cpu() - want).abs().max() < 1e-4
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_train_step_on_the_card_matches_cpu(cuda, compression):
+    """Two float32 train steps of a smoke config on the card and on the
+    CPU from the same params: the loss within 1e-5 relative and every
+    gradient leaf of the first step within 1e-3 of its ``max|g|``; the
+    1-bit compression of those gradients on a fused card device equals an
+    eager CPU device bit for bit, its bitmaps through K1 and K2."""
+    import dataclasses
+    from repro_torch.config.base import TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.tree import tree_items, tree_map
+    from repro_torch.train import grad_compress, trainer
+    import repro_torch.pum as pum
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"),
+                              dtype="float32")
+    tcfg = TrainConfig(warmup_steps=1, grad_compression=compression)
+    host = trainer.init_train_state(cfg, tcfg, device="cpu")
+    card = tuple(tree_map(lambda t: t.detach().to(cuda), s) for s in host)
+    data = SyntheticLM(DataConfig(seq_len=16, global_batch=2,
+                                  vocab_size=cfg.vocab_size))
+    b0 = data.batch(0)
+    _, _, want = trainer.loss_and_grads(cfg, tcfg, host[0],
+                                        trainer.device_batch(b0, "cpu"))
+    _, _, got = trainer.loss_and_grads(cfg, tcfg, card[0],
+                                       trainer.device_batch(b0, cuda))
+    for (path, w), (_, g) in zip(tree_items(want), tree_items(got)):
+        scale = float(w.abs().max()) or 1.0
+        assert float((g.cpu() - w).abs().max()) <= 1e-3 * scale, path
+    step = trainer.build_train_step(cfg, tcfg)
+    for i in range(2):
+        batch = data.batch(i)
+        _, _, hm = step(*host, trainer.device_batch(batch, "cpu"))
+        _, _, cm = step(*card, trainer.device_batch(batch, cuda))
+        assert abs(float(cm["loss"]) - float(hm["loss"])) <= \
+            1e-5 * abs(float(hm["loss"]))
+    fused = pum.device(width=32, device=cuda)
+    eager = pum.device(width=32, fuse=False, device="cpu")
+    before = dict(ops.LAUNCHES)
+    err = grad_compress.init_error(got)
+    dq, de = grad_compress.compress_grads_sign_with_feedback(got, err, fused)
+    hq, he = grad_compress.compress_grads_sign_with_feedback(
+        tree_map(lambda t: t.cpu(), got), tree_map(lambda t: t.cpu(), err),
+        eager)
+    for a, b in zip(tree_items(dq) + tree_items(de),
+                    tree_items(hq) + tree_items(he)):
+        assert a[1].device.type == "cuda" and torch.equal(a[1].cpu(), b[1])
+    assert fused.stats.as_dict() == eager.stats.as_dict()
+    for k in ("bit_transpose32", "run_program_cuda"):
+        assert ops.LAUNCHES[k] > before.get(k, 0)

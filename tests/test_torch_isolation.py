@@ -9,7 +9,10 @@ backend, the bit-serial add kernel's dispatch, the controller
 kernels (``repro_torch.core.realworld``, the ``pum_database`` example),
 the autotuner and ``Device.autotune``, offline and online — and so does
 the LM serve path: the configs, the models of every family, the
-``ServeEngine`` with its captured stop predicate, and the launcher."""
+``ServeEngine`` with its captured stop predicate, and the launcher —
+and so does the LM train path: the optimizer, both gradient
+compressions, the trainer, the data pipeline, checkpoints, fault
+tolerance, the train launcher and the ``train_lm`` example."""
 
 from __future__ import annotations
 
@@ -41,7 +44,11 @@ def test_no_jax_or_reference_imports():
     packages = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
                 for p in files[:-1]}
     assert {"config", "configs", "models", "serve", "launch",
-            "distributed"} <= packages
+            "distributed", "train", "data", "checkpoint"} <= packages
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"src/repro_torch/launch/train.py",
+            "src/repro_torch/distributed/fault_tolerance.py",
+            "src/repro_torch/examples/train_lm.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -168,11 +175,55 @@ def test_port_runs_with_jax_and_reference_unimportable():
             assert launch_serve.main(["--arch", "qwen3-1.7b", "--smoke",
                                       "--requests", "2", "--max-new", "2",
                                       "--device", "cpu"]) == 0
+        # The LM train path: the trainer with both compressions, the
+        # data pipeline, a checkpoint round trip, fault tolerance, the
+        # launcher and the example.
+        import tempfile
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.config.base import TrainConfig
+        from repro_torch.data.pipeline import (DataConfig, Prefetcher,
+                                               SyntheticLM)
+        from repro_torch.distributed.fault_tolerance import (
+            HeartbeatMonitor, plan_elastic_mesh)
+        from repro_torch.examples import train_lm
+        from repro_torch.launch import train as launch_train
+        from repro_torch.train import grad_compress
+        from repro_torch.train.trainer import train_loop
+        cfg = get_smoke_config("mamba2-130m")
+        data = Prefetcher(SyntheticLM(DataConfig(
+            seq_len=16, global_batch=2, vocab_size=cfg.vocab_size)))
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = CheckpointManager(d)
+            params, opt, hist = train_loop(
+                cfg, TrainConfig(grad_compression=True, checkpoint_every=2),
+                data, 3, checkpoint=ckpt, device="cpu")
+            data.close()
+            assert len(hist) == 3 and ckpt.all_steps() == [2, 3]
+            p2, o2, meta = ckpt.restore(3, params, opt)
+            assert meta["step"] == 3 and torch.equal(o2["err"]["embed"][
+                "embedding"], opt["err"]["embed"]["embedding"])
+        deq, err = grad_compress.compress_grads_sign_with_feedback(
+            {"g": torch.linspace(-1, 1, 100)}, {"g": torch.zeros(100)},
+            device=pum.device(width=32, device="cpu"))
+        mag = deq["g"].abs().unique()
+        assert len(mag) == 2 and mag[0] == 0 and torch.equal(
+            deq["g"] + err["g"], torch.linspace(-1, 1, 100))
+        mon = HeartbeatMonitor()
+        mon.beat("w0", 0.1)
+        assert mon.dead_workers() == [] and plan_elastic_mesh(8, 2) == (4, 2)
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            assert launch_train.main(["--arch", "qwen1.5-0.5b", "--smoke",
+                                      "--steps", "2", "--seq-len", "16",
+                                      "--global-batch", "2",
+                                      "--device", "cpu"]) == 0
+            hist = train_lm.main(["--steps", "1", "--seq-len", "16",
+                                  "--batch", "2", "--device", "cpu"])
+        assert "over 2 steps" in buf.getvalue() and len(hist) == 1
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ,
+                         env=dict(os.environ, OMP_NUM_THREADS="1",
                                   PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
