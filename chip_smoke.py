@@ -142,7 +142,19 @@ into ``build/repro_torch/`` and then, failing on the first error:
     ``python -m repro_torch.launch.train``: a simulated preemption exits
     42 with step 5 saved, a rerun resumes to step 12 with its step-5 loss
     within 1e-4 of an uninterrupted run's, then 3 steps at full width;
-22. prints one JSON line of per-kernel results, the card's name and power
+22. launch and distributed (``launch_and_shard``): prog16 at 2M lanes
+    through ``pum.device(fused_backend="shard-words")`` over every visible
+    card, bit-exact against NumPy, a ``vertical-cuda`` device and a CPU
+    device with equal ``EngineStats`` (prints K1/K2 launches per card per
+    flush and the warm flush's wall and spans beside ``vertical-cuda``'s);
+    qwen1.5-0.5b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` cells
+    built by ``repro_torch.launch.steps.build_cell`` on one card's mesh at
+    full width, the global batch cut to 2, 1 and 8 (the sequence lengths
+    kept): the tensors given equal the analytic dry run's argument bytes,
+    outputs finite (prints warm wall, peak memory, the dry run's counted
+    FLOPs and the roofline's one-card bound); then the analytic dry run
+    of the three cells on the 16x16 production mesh (host only);
+23. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -170,6 +182,19 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 ALU_OPS_PER_S = 67e12       # H100 SXM 32-bit non-tensor peak
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEED = 20231202
+
+
+class PhaseClock:
+    """Prints the host wall time of each phase, and the total so far."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def stamp(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - self.last:.1f} s (total "
+              f"{now - self.start:.1f} s)", flush=True)
+        self.last = now
 
 
 def fail(msg: str) -> None:
@@ -979,8 +1004,9 @@ def profile_ticks(step, n_ticks: int) -> dict | None:
     over the device-side events (kernels, copies, memsets; one stream, so
     they do not overlap) and their count, per call; the idle share is 1 -
     device time / the unprofiled call's wall. Also the profiled wall and
-    the five most frequent device events (name, count and ms per call).
-    ``None`` when the profiler saw no device events."""
+    the five most frequent device events and the five longest (name,
+    count and ms per call). ``None`` when the profiler saw no device
+    events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1004,13 +1030,16 @@ def profile_ticks(step, n_ticks: int) -> dict | None:
     if dev_us == 0:
         return None
     device_ms = dev_us / 1e3 / n_ticks
-    top = sorted(dev, key=lambda e: -e[1])[:5]
+    def per_call(events):
+        return [(k[:48], n / n_ticks, us / 1e3 / n_ticks)
+                for k, n, us in events]
+
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
             "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall_ms,
             "device_ops": sum(n for _, n, _ in dev) / n_ticks,
-            "top_ops": [(k[:48], n / n_ticks, us / 1e3 / n_ticks)
-                        for k, n, us in top]}
+            "top_ops": per_call(sorted(dev, key=lambda e: -e[1])[:5]),
+            "top_time": per_call(sorted(dev, key=lambda e: -e[2])[:5])}
 
 
 def lm_inputs(cfg, rng, b: int, t: int, device) -> dict:
@@ -1792,6 +1821,295 @@ def lm_train(device: str, build, seed: int) -> dict:
     return out
 
 
+LAUNCH_ARCH = "qwen1.5-0.5b"    # the cells' model: the launchers' example
+# (shape, global batch kept on one card): each shape's sequence length is
+# kept; only its global batch is cut to what one 80 GB card holds.
+LAUNCH_CUTS = (("train_4k", 2), ("prefill_32k", 1), ("decode_32k", 8))
+
+
+def launch_and_shard(device: str, build, seed: int) -> dict:
+    """Phase 22 (``launch_and_shard``) on ``device`` (``"cuda"`` on the
+    card; on the CPU it rehearses with 4096 lanes, the arch's smoke config
+    and sequence lengths of 16): :func:`shard_words_run`, then
+    :func:`lm_cells_run`."""
+    out = shard_words_run(device, build, seed)
+    out.update(lm_cells_run(device, seed))
+    return out
+
+
+def shard_words_run(device: str, build, seed: int) -> dict:
+    """prog16 at 2M lanes through ``pum.device(fused_backend=
+    "shard-words")`` over every visible card (one shard on a one-card
+    host): bit-exact against NumPy, a ``vertical-cuda`` device and a CPU
+    device, ``EngineStats`` equal; K1/K2 launches counted per card
+    (n_inputs + n_outputs and 1 per flush on each), the warm flush's wall
+    and ``flush.*`` spans beside the ``vertical-cuda`` device's."""
+    import numpy as np
+    import torch
+    import repro_torch.pum as pum
+    from repro_torch.distributed.sharding import words_mesh
+    from repro_torch.kernels import ops
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    n = (1 << 21) if on_card else 4096
+    ops16 = [rng.integers(0, 2**32, n, dtype=np.uint64) for _ in range(3)]
+    want = prog16_numpy(*ops16)
+    cards = words_mesh().devices if on_card else (dev,)
+    per_card = collections.Counter()
+    real = {"bit_transpose32": ops.bit_transpose32_cuda,
+            "run_program_cuda": ops.run_program_cuda}
+
+    def counted(name):
+        def launch(*args):
+            x = args[-1] if name == "run_program_cuda" else args[0]
+            per_card[(x.device.index, name)] += 1
+            return real[name](*args)
+        return launch
+
+    results = {}
+    for label, kw in (("shard-words", {"fused_backend": "shard-words"}),
+                      ("vertical-cuda", {}),
+                      ("cpu", {"device": "cpu"})):
+        if not on_card and label != "cpu":
+            kw = dict(kw, device="cpu")
+        d = pum.device(**kw)
+        reset_launches(build)
+        per_card.clear()
+        ops.bit_transpose32_cuda = counted("bit_transpose32")
+        ops.run_program_cuda = counted("run_program_cuda")
+        try:
+            t = time.perf_counter()
+            cold = prog16(d, *ops16).to_numpy()
+            cold_s = time.perf_counter() - t
+            with pum.profile(d) as tr:
+                t = time.perf_counter()
+                warm = prog16(d, *ops16).to_numpy()
+                warm_s = time.perf_counter() - t
+        finally:
+            ops.bit_transpose32_cuda = real["bit_transpose32"]
+            ops.run_program_cuda = real["run_program_cuda"]
+        check(np.array_equal(cold, want) and np.array_equal(warm, want),
+              f"prog16 {n} lanes on {label}: differs from NumPy")
+        prog = d.engine.last_program
+        results[label] = {
+            "stats": d.stats.as_dict(), "cold_s": cold_s, "warm_s": warm_s,
+            "spans": span_ms(tr), "launches": dict(build.LAUNCHES),
+            "per_card": dict(per_card),
+            "k1_per_flush": prog.n_inputs + len(prog.outputs)}
+        d.close()
+    for label in ("vertical-cuda", "cpu"):
+        check(results[label]["stats"] == results["shard-words"]["stats"],
+              f"shard-words: EngineStats differ from the {label} device "
+              f"({results['shard-words']['stats']} vs "
+              f"{results[label]['stats']})")
+    sw = results["shard-words"]
+    if on_card:
+        for i, card in enumerate(cards):
+            k1 = sw["per_card"].get((card.index, "bit_transpose32"), 0)
+            k2 = sw["per_card"].get((card.index, "run_program_cuda"), 0)
+            check((k1, k2) == (2 * sw["k1_per_flush"], 2),
+                  f"shard-words: card {card} launched K1/K2 {k1}/{k2} over "
+                  f"2 flushes, want {2 * sw['k1_per_flush']}/2")
+        check(sum(sw["launches"].get(k, 0) for k in K12)
+              == len(cards) * 2 * (sw["k1_per_flush"] + 1),
+              f"shard-words: launches {sw['launches']}")
+    print(f"shard-words prog16 {n} lanes over {len(cards)} "
+          f"{'card' if len(cards) == 1 else 'cards'} "
+          f"({', '.join(str(c) for c in cards)}): bit-exact vs NumPy, "
+          f"vertical-cuda and a CPU device, EngineStats equal "
+          f"{sw['stats']}")
+    for label in ("shard-words", "vertical-cuda", "cpu"):
+        r = results[label]
+        card_counts = "; ".join(
+            f"{label} card {c.index}: K1/K2 "
+            f"{r['per_card'].get((c.index, 'bit_transpose32'), 0) // 2}/"
+            f"{r['per_card'].get((c.index, 'run_program_cuda'), 0) // 2} "
+            f"per flush" for c in cards) if on_card and label != "cpu" \
+            else f"{label}: no kernel launch"
+        print(f"  {label}: first flush {r['cold_s']:.4f} s, warm "
+              f"{r['warm_s'] * 1e3:.1f} ms; {card_counts}; launches "
+              f"{r['launches']} (2 flushes); warm spans (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["spans"].items()))
+    out["shard_launches"] = sw["launches"]
+    out["shard_warm_ms"] = sw["warm_s"] * 1e3
+    out["vertical_warm_ms"] = results["vertical-cuda"]["warm_s"] * 1e3
+    return out
+
+
+def lm_cells_run(device: str, seed: int) -> dict:
+    """qwen1.5-0.5b's ``train_4k``, ``prefill_32k`` and ``decode_32k``
+    cells through ``steps.build_cell(..., make_test_mesh(1))`` at full
+    width (24 layers, d 1024, padded vocab 153,600; weights from a
+    ``torch.Generator`` seeded 0), each shape's sequence length kept and
+    its global batch cut to :data:`LAUNCH_CUTS`: the tensors given to the
+    cell are the dry run's ``meta`` arguments made real, their bytes equal
+    to its ``argument_size_in_bytes`` on the 1x1 mesh, and the outputs
+    finite; prints each cell's warm wall (ending in a read-back), peak
+    memory, the dry run's counted FLOPs at the cut shape and the
+    roofline's one-card bound. Then the analytic dry run of the three
+    cells on the 16x16 production mesh (host only)."""
+    import torch
+    from repro_torch.config.base import (LM_SHAPES, ShapeConfig, get_config,
+                                         get_smoke_config)
+    from repro_torch.launch import dryrun, roofline, steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.tree import tree_leaves
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    full_cfg = get_config(LAUNCH_ARCH)
+    cfg = full_cfg if on_card else get_smoke_config(LAUNCH_ARCH)
+    # One card's 1x1 mesh: the cut cells run unsharded on it.
+    mesh = make_test_mesh(1) if on_card else make_test_mesh(devices=[dev])
+    real_get_config = steps.get_config
+    if not on_card:  # rehearsal: the smoke config through the same builder
+        steps.get_config = lambda arch: cfg
+    try:
+        for name, cut in LAUNCH_CUTS:
+            g = LM_SHAPES[name]
+            seq = g.seq_len if on_card else 16
+            shape = ShapeConfig(name, g.kind, seq, cut)
+            cell = steps.build_cell(LAUNCH_ARCH, shape, mesh)
+            rec = dryrun.trace_cell(cell, mesh)
+            args = lm_cell_args(cell, cfg, dev, seed)
+            metas, reals = tree_leaves(cell.args), tree_leaves(args)
+            check(len(metas) == len(reals) and all(
+                tuple(m.shape) == tuple(r.shape) and m.dtype == r.dtype
+                for m, r in zip(metas, reals)),
+                f"{name}: real arguments differ from the cell's specs")
+            given = sum(t.numel() * t.element_size() for t in reals)
+            check(given == rec["memory"]["argument_size_in_bytes"],
+                  f"{name}: {given} bytes given, the dry run says "
+                  f"{rec['memory']['argument_size_in_bytes']}")
+            walls = []
+            for _ in range(2):
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                sync()
+                t = time.perf_counter()
+                res = cell.fn(*args)
+                # read back: a train step's metrics, the serving logits
+                host = [v.float().cpu() for v in (
+                    res[2].values() if g.kind == "train" else res[:1])]
+                walls.append(time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+            check(all(bool(torch.isfinite(x).all()) for x in
+                      host + tree_leaves(res) if x.is_floating_point()),
+                  f"{name}: non-finite outputs")
+            bound = one_card_bound(roofline, LAUNCH_ARCH, name, cut)
+            size = "full width" if on_card else "smoke"
+            print(f"{name} cut to batch {cut} x {seq} ({g.global_batch} "
+                  f"global), {LAUNCH_ARCH} {size}: {given:,} argument "
+                  f"bytes on the card = the dry run's; "
+                  f"outputs finite; wall {walls[0]:.3f} s cold, "
+                  f"{walls[1]:.3f} s warm; peak memory "
+                  f"{peak / 2**30:.2f} GiB; dry run "
+                  f"{rec['flops'] / 1e12:.3f} TFLOP counted (trace {rec['lower_compile_s']} s); "
+                  f"one-card bound {bound['bound_s'] * 1e3:.2f} ms "
+                  f"(compute {bound['compute_s'] * 1e3:.2f}, memory "
+                  f"{bound['memory_s'] * 1e3:.2f}; analytic "
+                  f"{bound['flops'] / 1e12:.3f} TFLOP)")
+            if on_card:
+                prof = profile_ticks(lambda: cell.fn(*args), 1)
+                check(prof is not None, f"{name}: the profiler saw no "
+                      f"device events")
+                print(f"  {name} under torch.profiler (1 call): "
+                      f"{prof['wall_ms']:.1f} ms unprofiled "
+                      f"({prof['profiled_wall_ms']:.1f} profiled), device "
+                      f"busy {prof['device_ms']:.1f} ms, idle share "
+                      f"{prof['idle_share']:.3f}, {prof['device_ops']:.0f} "
+                      f"device ops; longest (name, count, ms): "
+                      + "; ".join(f"{k} {n:.0f} {ms:.1f}"
+                                  for k, n, ms in prof["top_time"]))
+                out[f"{name}_profile"] = prof
+            out[name] = {"warm_s": walls[1], "cold_s": walls[0],
+                         "peak_gib": peak / 2**30,
+                         "dry_run_flops": rec["flops"],
+                         "arg_bytes": given, **bound}
+            del cell, args, res, host
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        steps.get_config = real_get_config
+
+    # the analytic dry run on 16x16 (host)
+    t = time.perf_counter()
+    for name, _ in LAUNCH_CUTS:
+        rec = dryrun.run_cell(LAUNCH_ARCH, name, False)
+        p = roofline.analyze_record(rec)
+        print(f"dry run {LAUNCH_ARCH} x {name} x {rec['mesh']}: "
+              f"{rec['flops'] / 1e12:.3f} TFLOP per device counted "
+              f"({rec['flops'] * rec['n_devices'] / 1e12:.1f} global; "
+              f"analytic {p.analytic_flops_total / 1e12:.1f}), "
+              f"{rec['memory']['argument_size_in_bytes']:,} argument bytes "
+              f"per device, trace {rec['lower_compile_s']} s; roofline "
+              f"compute {p.compute_s * 1e3:.3f} ms, memory "
+              f"{p.memory_s * 1e3:.3f} ms ({p.dominant})")
+    print(f"dry run on 16x16: {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def lm_cell_args(cell, cfg, dev, seed: int) -> tuple:
+    """Real tensors for a cell's ``meta`` arguments on ``dev``: the
+    parameters drawn by ``init_params`` from a ``torch.Generator`` seeded
+    0 (cast as the specs are), AdamW state and caches as zeros, token ids
+    and positions from a generator seeded ``seed``."""
+    import torch
+    from repro_torch.models import model as lm
+    from repro_torch.models.tree import tree_map
+    from repro_torch.train.optimizer import adamw_init
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    params = tree_map(lambda p, spec: p.to(spec.dtype), params,
+                      cell.args[0])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kind = cell.shape.kind
+    if kind == "train":
+        tok = cell.args[2]["tokens"]
+        return (params, adamw_init(params),
+                {"tokens": torch.randint(0, cfg.vocab_size, tok.shape,
+                                         generator=gen, device=dev,
+                                         dtype=tok.dtype)})
+    if kind == "prefill":
+        tok = cell.args[1]["tokens"]
+        return (params, {"tokens": torch.randint(
+            0, cfg.vocab_size, tok.shape, generator=gen, device=dev,
+            dtype=tok.dtype)})
+    caches = tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype,
+                                            device=dev), cell.args[1])
+    tok, pos = cell.args[2], cell.args[3]
+    token = torch.randint(0, cfg.vocab_size, tok.shape, generator=gen,
+                          device=dev, dtype=tok.dtype)
+    # The last slot of the ring: every position of the cache attended.
+    position = torch.full(pos.shape, cell.shape.seq_len - 1,
+                          dtype=pos.dtype, device=dev)
+    return params, caches, token, position
+
+
+def one_card_bound(roofline, arch: str, name: str, cut: int) -> dict:
+    """The roofline's least time for a cell cut to ``cut`` sequences on
+    one card: the analytic FLOPs scaled by ``cut`` over the global batch
+    at ``PEAK_FLOPS``, against the analytic bytes of one device holding
+    ``cut`` sequences (``global_batch / cut`` devices, no model axis) at
+    ``HBM_BW``."""
+    from repro_torch.config.base import LM_SHAPES
+    gb = LM_SHAPES[name].global_batch
+    flops = roofline.analytic_flops(arch, name) * cut / gb
+    nbytes = roofline.analytic_bytes_per_chip(arch, name, gb // cut,
+                                              msize=1)
+    compute, memory = flops / roofline.PEAK_FLOPS, nbytes / roofline.HBM_BW
+    return {"flops": flops, "bytes": nbytes, "compute_s": compute,
+            "memory_s": memory, "bound_s": max(compute, memory)}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1831,6 +2149,7 @@ def main() -> int:
     cuda = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     results = {}
+    clock = PhaseClock()
 
     # -- 1. build every kernel, all nvcc processes started together ----- #
     n_small = 1 << 10
@@ -1876,6 +2195,7 @@ def main() -> int:
     for name, info in sorted(_build.BUILDS.items()):
         print(f"  {name}: {info['seconds']:.1f} s, "
               f"{_build.ptxas_summary(name)}")
+    clock.stamp("1")
 
     # -- 2. bit-transpose kernel vs its plain version -------------------- #
     k1_err = 0
@@ -1911,6 +2231,7 @@ def main() -> int:
           f"the Python wrapper {k1_wrap:.4f} ms), plain "
           f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms "
           f"({k1_bytes} bytes)")
+    clock.stamp("2")
 
     # -- 3. fused-program kernel vs its plain version -------------------- #
     k2_err = 0
@@ -2135,6 +2456,7 @@ def main() -> int:
               f"{max(bound_b, bound_o):.4f} ms ({nbytes} bytes)")
         del k4_sets, a, b
     del k5_sets, k3_pairs, x, v, c
+    clock.stamp("3")
 
     # -- 4. the main path through the public entry point ----------------- #
     for k in list(_build.LAUNCHES):
@@ -2201,6 +2523,7 @@ def main() -> int:
     print(f"main path: {main_s:.1f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
           f"launches {launches}")
+    clock.stamp("4")
 
     # -- 6. the paper's analog anchors on the card ----------------------- #
     t = time.perf_counter()
@@ -2216,6 +2539,7 @@ def main() -> int:
     check(pulsar >= 0.93, f"PULSAR MAJ3@32 {pulsar} below 0.93")
     check(pulsar - frac > 0.10, f"PULSAR gain {pulsar - frac} not above 0.10")
     check(0.55 <= maj5 <= 0.92, f"MAJ5@32 {maj5} outside [0.55, 0.92]")
+    clock.stamp("6")
 
     # -- 7. the reliability path: full-size calibration ------------------ #
     cfg = pum.EngineConfig()
@@ -2242,6 +2566,7 @@ def main() -> int:
           f"{cfg.row_bits} columns x 12 patterns: {cal_s:.2f} s, "
           f"flip_p {rmap.flip_p.nbytes / 2**20:.0f} MiB, launches "
           f"{cal_launches}, success per config {per_cfg}")
+    clock.stamp("7")
 
     # -- 8. the reliability path: injected fused flushes ----------------- #
     rel_launches = collections.Counter()
@@ -2336,6 +2661,7 @@ def main() -> int:
         print(f"  reliability counters (first flush): {counters}")
         print("  warm flush spans (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in spans.items()))
+    clock.stamp("8")
 
     # -- 9. the chip model at the paper's module geometry ---------------- #
     for k in list(_build.LAUNCHES):
@@ -2370,6 +2696,7 @@ def main() -> int:
           f"and bank 0 equal the CPU run; launches {chip_launches}")
     print(f"  OpStats: {st}")
     print(f"  op_counts: {alu.op_counts}")
+    clock.stamp("9")
 
     # -- 10. cold-boot destruction of one PAPER_MODULE bank -------------- #
     bank_shape = tuple(chip.banks.shape[1:])
@@ -2388,6 +2715,7 @@ def main() -> int:
               f"{rep}, card {sec:.2f} s, CPU {on_cpu[method][1]:.2f} s, "
               f"report equal to the CPU run")
     del chip, host_chip, alu, host_alu
+    clock.stamp("10")
 
     # -- 11. the sim backend through pum.device(backend="sim") ----------- #
     for k in list(_build.LAUNCHES):
@@ -2439,6 +2767,7 @@ def main() -> int:
     check(sim_launches.get("maj_n", 0) > 0, "sim: maj_n never launched")
     print(f"sim backend: {time.perf_counter() - sim_t0:.1f} s (card and CPU), "
           f"launches {sim_launches}")
+    clock.stamp("11")
 
     # -- 12. the controller: controller-priced flushes ------------------ #
     from repro_torch.controller import retarget_program
@@ -2535,6 +2864,7 @@ def main() -> int:
           f"overlap {serial_ns / xtr.total_ns:.3f}x, 0 violations, "
           f"{xtr.n_refreshes} refreshes, {xbar_s:.3f} s on the host")
     print(f"  derive_port_counters: {port_counters}")
+    clock.stamp("12")
 
     # -- 13. client contexts and flush_async ----------------------------- #
     n_clients = 8
@@ -2628,6 +2958,7 @@ def main() -> int:
           f"one thread {s_cold:.3f} s cold / {s_warm:.3f} s warm; launches "
           f"{async_launches} ({per_flush} per flush)")
     del adev, sdev, client_ops, client_want, a_outs, a_outs2, s_outs, s_outs2
+    clock.stamp("13")
 
     # -- 14. capture ----------------------------------------------------- #
     uploads = []
@@ -2701,18 +3032,27 @@ def main() -> int:
         del kdev, rdev, prog, ops_c, want
     print(f"capture launches (3 replays at 2M and at 32M): "
           f"{dict(capture_launches)}")
+    clock.stamp("14")
 
     # -- 15-19. Fig 20, golden fig20, pum_database, autotune ------------- #
     slice5 = apps_and_autotune(pum, "cuda", ops16, want16, SEED,
                                rel_cases["prog16 2M lanes"][0])
+    clock.stamp("15-19")
 
     # -- 20. the LM serve path ------------------------------------------ #
     serve = lm_serve("cuda", _build, serve_programs[0], SEED)
+    clock.stamp("20")
 
     # -- 21. the LM train path ------------------------------------------ #
     train = lm_train("cuda", _build, SEED)
+    clock.stamp("21")
 
-    # -- 22. results ----------------------------------------------------- #
+    # -- 22. launch and distributed: shard-words, the LM cells ---------- #
+    reset_launches(_build)
+    shard = launch_and_shard("cuda", _build, SEED)
+    clock.stamp("22")
+
+    # -- 23. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -2724,8 +3064,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/bit_transpose.py:46",
          "launches": launches["bit_transpose32"]
          + serve["serve_launches"]["bit_transpose32"]
-         + train["train_launches"]["bit_transpose32"],
+         + train["train_launches"]["bit_transpose32"]
+         + shard["shard_launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
+         "launches_shard_words": shard["shard_launches"]["bit_transpose32"],
          "launches_serve": serve["serve_launches"]["bit_transpose32"],
          "launches_train": train["train_launches"]["bit_transpose32"],
          "train_ms": train["train_k1"][0],
@@ -2748,8 +3090,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused_program.py:655",
          "launches": launches["run_program_cuda"]
          + serve["serve_launches"]["run_program_cuda"]
-         + train["train_launches"]["run_program_cuda"],
+         + train["train_launches"]["run_program_cuda"]
+         + shard["shard_launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
+         "launches_shard_words": shard["shard_launches"]["run_program_cuda"],
          "launches_serve": serve["serve_launches"]["run_program_cuda"],
          "launches_train": train["train_launches"]["run_program_cuda"],
          "train_ms": train["train_k2"][0],

@@ -14,13 +14,14 @@ Everything here is a *model*: the point is deterministic, transitive
 ranking of candidates from one measured profile (same profile => same
 ranking in any process), not absolute wall-clock prediction.
 
-The anchors are the card's: :data:`HBM_BW` and :data:`PEAK_FLOPS` are the
-datasheet figures of an NVIDIA H100 80GB HBM3 (SXM) at its 700 W power
-limit, bf16 dense. The reference anchors the same model to TPU v5e
-constants (819e9 B/s, 197e12 FLOP/s), and the anchors change decisions:
-a window whose staged leaf bytes dominate recommends eager execution
-under the TPU anchors and keeps the fused pipeline under these. The host
-tier derives from the anchors when a window is scored
+The anchors are the card's: :data:`HBM_BW` and :data:`PEAK_FLOPS`, read
+from ``launch/roofline.py``, are the datasheet figures of an NVIDIA H100
+80GB HBM3 (SXM) at its 700 W power limit, bf16 dense. The reference
+anchors the same model to TPU v5e constants (819e9 B/s, 197e12 FLOP/s),
+and the anchors change decisions: a window whose staged leaf bytes
+dominate recommends eager execution under the TPU anchors and keeps the
+fused pipeline under these. The host tier derives from the anchors when
+a window is scored
 (:func:`host_anchors`), so the two constants are the only ones to set.
 """
 
@@ -29,10 +30,9 @@ from __future__ import annotations
 import dataclasses
 import math
 
-# NVIDIA H100 80GB HBM3 (SXM), 700 W power limit: datasheet memory rate
-# and bf16 dense tensor-core peak.
-HBM_BW = 3.35e12       # bytes/s
-PEAK_FLOPS = 989.4e12  # FLOP/s
+# The roofline's card constants (NVIDIA H100 80GB HBM3 SXM, 700 W):
+# retune them there and the autotuner moves with them.
+from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
 
 
 def host_anchors() -> tuple[float, float]:
@@ -56,6 +56,8 @@ BACKEND_SPEED = {
     "vertical-cuda-64": (8.0, 16.0),
     "ref-vertical": (0.05, 1.0),
     "ref-vertical-64": (0.05, 1.0),
+    # The reference's multipliers, not re-fitted on the card.
+    "shard-words": (1.6, 1.6),
 }
 DEFAULT_SPEED = (0.5, 1.0)         # unknown registered backends
 

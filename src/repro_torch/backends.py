@@ -18,7 +18,9 @@ Availability is a property of the Device's own ``torch.device``, never a
 global probe: a CUDA device selects ``vertical-cuda`` (the hand-written
 bit-transpose and fused-program kernels), a CPU device ``words-torch``.
 ``ref-vertical`` (the plain vertical version of both kernels) is never
-auto-selected and is requestable by name.
+auto-selected and is requestable by name. ``shard-words`` splits one
+flush's word axis across devices, each shard on its device's own pick;
+it is requestable by name on any device.
 
 Builders import lazily, so the registry can be imported from anywhere in
 the package without cycles.
@@ -29,13 +31,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from typing import Any, Callable
-
-# Reference backends that later slices of the port bring.
-_LATER_SLICES = {
-    "shard-words": "the LM/distributed slice (multi-GPU word-axis "
-                   "pipeline)",
-}
-
 
 def _never(device) -> bool:
     return False
@@ -88,8 +83,8 @@ def register_backend(name: str, builder: Callable[..., Any], *,
     re-registration with the same builder and knobs still gives a spec
     unequal to the old one, and the pipeline cache builds anew for it.
     The built-in names are ``fast``, ``sim``, ``words-torch``,
-    ``vertical-cuda``,
-    ``ref-vertical`` and their ``-64`` layout variants."""
+    ``vertical-cuda``, ``ref-vertical``, their ``-64`` layout variants
+    and ``shard-words``."""
     knobs = {} if available is None else {"available": available}
     spec = BackendSpec(name=name, builder=builder,
                        capabilities=frozenset(capabilities),
@@ -108,10 +103,6 @@ def get_backend(name: str) -> BackendSpec:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in _LATER_SLICES:
-            raise NotImplementedError(
-                f"backend {name!r} is not ported yet: it comes with "
-                f"{_LATER_SLICES[name]}") from None
         raise KeyError(
             f"unknown backend {name!r}; registered: "
             f"{sorted(_REGISTRY)} (register_backend() adds new ones)"
@@ -182,9 +173,26 @@ def select_backend(*, require, device, width: int | None = None,
                     and (width is None or spec.max_width >= width) \
                     and (wb is None or wb in spec.layouts):
                 return spec
+    return _best_available(need, device, width, wb)
+
+
+def shard_backend(device, width: int, layout) -> BackendSpec:
+    """The fused evaluator one shard of a sharded flush runs on
+    ``device``: the highest-priority backend available there, never a
+    ``"sharded"`` one and never a selection pin (a pin chooses the
+    flush's pipeline, not its shards')."""
+    import torch
+
+    return _best_available(frozenset({"fused"}), torch.device(device),
+                           width, getattr(layout, "word_bits", layout),
+                           skip="sharded")
+
+
+def _best_available(need: frozenset, device, width, wb,
+                    skip: str | None = None) -> BackendSpec:
     best: BackendSpec | None = None
     for spec in _REGISTRY.values():
-        if not need <= spec.capabilities:
+        if not need <= spec.capabilities or skip in spec.capabilities:
             continue
         if width is not None and spec.max_width < width:
             continue
@@ -260,6 +268,17 @@ def on_cuda(device) -> bool:
     return device.type == "cuda"
 
 
+def multi_card(device) -> bool:
+    import torch
+
+    return device.type == "cuda" and torch.cuda.device_count() > 1
+
+
+def _build_sharded_words_pipeline(program, donate: bool = False):
+    from repro_torch.kernels import fused_program
+    return fused_program.build_sharded_words_pipeline(program, donate=donate)
+
+
 register_backend("fast", _build_fast_dataplane,
                  capabilities=("eager",), max_width=64, priority=10,
                  layouts=(32, 64))
@@ -288,3 +307,12 @@ register_backend("vertical-cuda-64", _build_cuda_pipeline,
 register_backend("ref-vertical-64", _build_ref_vertical_pipeline,
                  capabilities=("fused", "vertical", "debug"), max_width=64,
                  priority=-10, available=_never, layouts=(64,))
+
+# Multi-card sharded pipeline: splits the program's word axis across the
+# visible cards, each shard on that card's own evaluator. Auto-selected
+# only on a CUDA device of a multi-card host, where it still loses to
+# vertical-cuda (priority 20); always requestable by name
+# (EngineConfig.fused_backend="shard-words").
+register_backend("shard-words", _build_sharded_words_pipeline,
+                 capabilities=("fused", "sharded"), max_width=32,
+                 priority=15, available=multi_card)

@@ -31,7 +31,8 @@ tree), reduce_and(param=w) (== mask(w)), reduce_or (!= 0), reduce_xor
 
 Backend selection goes through :mod:`repro_torch.backends` (capability
 ``"fused"``) for the device the leaves live on: ``vertical-cuda`` on a
-CUDA device, ``words-torch`` on the CPU, ``ref-vertical`` by name.
+CUDA device, ``words-torch`` on the CPU, ``ref-vertical`` and
+``shard-words`` (the word axis split across devices) by name.
 Programs are frozen/hashable, so pipelines are cached on graph structure.
 """
 
@@ -525,6 +526,70 @@ def build_words_pipeline(program: FusedProgram, donate: bool = False):
     # buffers are served unless the flush donates its leaves.
     word_pipeline.wants_device = lambda wire_words: not donate
     return word_pipeline
+
+
+def build_sharded_words_pipeline(program: FusedProgram,
+                                 donate: bool = False, mesh=None):
+    """Multi-device pipeline (``shard-words``): the program's word axis
+    splits into contiguous shards, one per device of a ``("words",)``
+    mesh, so ONE flush executes one program on every device. The program
+    is elementwise across words, so the split needs no communication:
+    each shard is copied to its device, runs there, and the outputs are
+    gathered back onto the leaves' device and sliced to their length.
+
+    ``mesh`` (a :func:`~repro_torch.distributed.sharding.words_mesh`)
+    names the devices; by default CUDA leaves shard over every visible
+    card and CPU leaves stay whole on their device. Leaves pad to a
+    multiple of 32 x n_devices words first. Each shard runs the evaluator
+    its device selects (``backends.shard_backend``): on a card that is
+    ``vertical-cuda`` (K1 on each leaf and output, K2 once), on the CPU
+    ``words-torch``. The reference evaluates every shard in the word
+    domain; the outputs, and the cost plane's ``EngineStats``, are the
+    same. Every shard is launched before any output is gathered:
+    launches on different cards are asynchronous, and waiting on one
+    card before launching the next would serialise them. ``donate`` is
+    ignored, as in the reference: donated leaves would alias the shards.
+    """
+    from repro_torch.backends import shard_backend
+    from repro_torch.distributed.sharding import words_mesh
+
+    if program.layout.word_bits != 32:
+        raise ValueError("shard-words shards the 32-bit word layout; "
+                         "register a 64-bit variant to widen it")
+
+    def devices_for(leaf: torch.Tensor) -> tuple:
+        if mesh is not None:
+            return mesh.devices
+        if leaf.is_cuda:
+            return words_mesh().devices
+        return (leaf.device,)
+
+    def sharded_pipeline(*leaves):
+        home = leaves[0].device
+        devices = devices_for(leaves[0])
+        n = leaves[0].shape[0]
+        pad = (-n) % (32 * len(devices))
+        per = (n + pad) // len(devices)
+        padded = [torch.nn.functional.pad(x, (0, pad)) for x in leaves]
+        shard_outs = []
+        for i, dev in enumerate(devices):
+            spec = shard_backend(dev, program.width, program.layout)
+            run = get_pipeline(program, device=dev, backend=spec.name)
+            shard_outs.append(run(*(
+                x[i * per:(i + 1) * per].to(dev, non_blocking=True)
+                for x in padded)))
+        # A copy to the host is never asynchronous: it is read at once.
+        async_home = home.type == "cuda"
+        return tuple(
+            torch.cat([outs[t].to(home, non_blocking=async_home)
+                       for outs in shard_outs])[:n]
+            for t in range(len(program.outputs)))
+
+    # Leaf-cache protocol: no evaluator writes its inputs, so cached
+    # device buffers are safe to serve (a donating engine never offers
+    # them).
+    sharded_pipeline.wants_device = lambda wire_words: True
+    return sharded_pipeline
 
 
 def build_vertical_pipeline(program: FusedProgram, use_kernels: bool,

@@ -70,7 +70,11 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     token_of = torch.arange(n, device=dev).repeat_interleave(k)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=e)
+    # Counts by index_add_, not bincount: the same integers, but bincount
+    # reads the maximum on the host first (a sync on a card) and has no
+    # meta kernel, so the dry run could not trace the MoE archs.
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
+        0, sorted_e, torch.ones_like(sorted_e))
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(n * k, device=dev) - starts[sorted_e]
     rank = torch.zeros(n * k, dtype=torch.int64, device=dev)

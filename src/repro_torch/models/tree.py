@@ -43,3 +43,21 @@ def tree_items(tree: Any, path: tuple = ()) -> list[tuple[tuple, Any]]:
     if tree is None:
         return []
     return [(path, tree)]
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: str = "") -> Any:
+    """``fn(path, leaf)`` over ``tree``, keeping its structure; ``path``
+    joins the keys and indices from the root with ``/`` (as the
+    reference's sharding rules name a leaf: ``layers/attn/wq``)."""
+    def join(k):
+        return f"{path}/{k}" if path else str(k)
+
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, join(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, join(i))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)

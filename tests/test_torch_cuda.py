@@ -544,3 +544,94 @@ def test_train_step_on_the_card_matches_cpu(cuda, compression):
     assert fused.stats.as_dict() == eager.stats.as_dict()
     for k in ("bit_transpose32", "run_program_cuda"):
         assert ops.LAUNCHES[k] > before.get(k, 0)
+
+
+def _prog16_devices(a, b, c, **kw):
+    import repro_torch.pum as pum
+    from test_torch_cost_plane import prog16
+    dev = pum.device(width=32, **kw)
+    return dev, np.asarray(prog16(dev, a, b, c).to_numpy())
+
+
+def test_shard_words_on_one_card_matches_vertical_cuda(cuda):
+    """On a card, shard-words runs each shard through K1/K2 and equals
+    vertical-cuda and the CPU bit for bit, with equal EngineStats."""
+    rng = np.random.default_rng(22)
+    ops16 = [rng.integers(0, 1 << 32, 100_000, dtype=np.uint64)
+             for _ in range(3)]
+    before = dict(ops.LAUNCHES)
+    sdev, got = _prog16_devices(*ops16, fused_backend="shard-words")
+    torch.cuda.synchronize()
+    assert all(ops.LAUNCHES[k] > before.get(k, 0)
+               for k in ("bit_transpose32", "run_program_cuda"))
+    vdev, want = _prog16_devices(*ops16)
+    hdev, host = _prog16_devices(*ops16, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, host)
+    assert sdev.stats.as_dict() == vdev.stats.as_dict() \
+        == hdev.stats.as_dict()
+
+
+def test_shard_words_per_card_launches(cuda):
+    """With several cards, one flush launches K1 (inputs + outputs) and K2
+    (once) on every card, and equals the CPU bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    seen = []
+    real = {"t": ops.bit_transpose32_cuda, "k": ops.run_program_cuda}
+
+    def transpose(x):
+        seen.append((x.device.index, "K1"))
+        return real["t"](x)
+
+    def program(prog, x):
+        seen.append((x.device.index, "K2"))
+        return real["k"](prog, x)
+
+    rng = np.random.default_rng(23)
+    ops16 = [rng.integers(0, 1 << 32, 300_000 + 17, dtype=np.uint64)
+             for _ in range(3)]
+    ops.bit_transpose32_cuda, ops.run_program_cuda = transpose, program
+    try:
+        sdev, got = _prog16_devices(*ops16, fused_backend="shard-words")
+    finally:
+        ops.bit_transpose32_cuda, ops.run_program_cuda = real["t"], real["k"]
+    hdev, host = _prog16_devices(*ops16, device="cpu")
+    np.testing.assert_array_equal(got, host)
+    assert sdev.stats.as_dict() == hdev.stats.as_dict()
+    prog = sdev.engine.last_program
+    k1 = prog.n_inputs + len(prog.outputs)
+    for card in range(torch.cuda.device_count()):
+        assert seen.count((card, "K1")) == k1, (card, seen)
+        assert seen.count((card, "K2")) == 1, (card, seen)
+
+
+def test_smoke_train_cell_on_the_card_matches_cpu(cuda, monkeypatch):
+    """A train cell built by launch.steps.build_cell on one card's mesh
+    equals the same cell on the CPU within 1e-5 in float32."""
+    import dataclasses
+    from repro_torch.config.base import ShapeConfig, get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.models.tree import tree_map
+    from repro_torch.train.optimizer import adamw_init
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              dtype="float32")
+    monkeypatch.setattr(steps, "get_config", lambda arch: cfg)
+    shape = ShapeConfig("train_tiny", "train", 16, 4)
+    tokens = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (4, 17), np.int32))
+    metrics = []
+    for mesh, dev in ((make_test_mesh(1), cuda),
+                      (make_test_mesh(devices=["cpu"]), torch.device("cpu"))):
+        cell = steps.build_cell("qwen3-1.7b", shape, mesh)
+        params = tree_map(lambda t: t.to(dev),
+                          init_params(cfg, 0, device="cpu"))
+        _, _, m = cell.fn(params, adamw_init(params),
+                          {"tokens": tokens.to(dev)})
+        metrics.append({k: float(v) for k, v in m.items()})
+    got, want = metrics
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-5 * max(abs(want[k]), 1e-30), k

@@ -208,8 +208,14 @@ def test_later_slices_raise_naming_them():
         tpum.device(device="cpu", reliability=object())
     # The chip-model slice is ported: backend="sim" builds (eager, per op).
     assert not tpum.device(device="cpu", backend="sim").config.fuse
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tpum.device(device="cpu", fused_backend="shard-words")
+    # The distributed slice is ported: shard-words builds and is the
+    # flush's evaluator (its results are held in
+    # tests/test_torch_shard_words.py).
+    sdev = tpum.device(device="cpu", fused_backend="shard-words")
+    assert sdev.engine.fused_backend == "shard-words"
+    sx = sdev.asarray(np.arange(64, dtype=np.uint64))
+    assert (sx + sx).to_numpy().tolist() == [2 * i for i in range(64)]
+    assert sdev.engine.last_program is not None
     # The concurrency slice is ported: flush_async, capture and client
     # build (their behaviour is held in tests/test_torch_concurrency.py).
     dev = tpum.device(device="cpu")

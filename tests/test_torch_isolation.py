@@ -12,7 +12,10 @@ the LM serve path: the configs, the models of every family, the
 ``ServeEngine`` with its captured stop predicate, and the launcher —
 and so does the LM train path: the optimizer, both gradient
 compressions, the trainer, the data pipeline, checkpoints, fault
-tolerance, the train launcher and the ``train_lm`` example."""
+tolerance, the train launcher and the ``train_lm`` example — and so does the launch
+and distributed slice: a ``shard-words`` flush, the meshes and sharding
+rules, a cell built and traced by the analytic dry run, the roofline and
+its table, and the ``hypothesis`` fallback."""
 
 from __future__ import annotations
 
@@ -48,7 +51,14 @@ def test_no_jax_or_reference_imports():
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"src/repro_torch/launch/train.py",
             "src/repro_torch/distributed/fault_tolerance.py",
-            "src/repro_torch/examples/train_lm.py"} <= names
+            "src/repro_torch/examples/train_lm.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/steps.py",
+            "src/repro_torch/launch/roofline.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/dryrun_table.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/testing.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -219,6 +229,29 @@ def test_port_runs_with_jax_and_reference_unimportable():
             hist = train_lm.main(["--steps", "1", "--seq-len", "16",
                                   "--batch", "2", "--device", "cpu"])
         assert "over 2 steps" in buf.getvalue() and len(hist) == 1
+        # The launch and distributed slice: shard-words, meshes, sharding
+        # rules, the analytic dry run, the roofline, the test fallback.
+        from repro_torch.distributed.sharding import P, words_mesh
+        from repro_torch.kernels.fused_program import (
+            build_sharded_words_pipeline)
+        from repro_torch.launch import dryrun, dryrun_table, roofline
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.launch.steps import build_cell
+        from repro_torch.testing import given, st
+        sdev = pum.device(width=32, fused_backend="shard-words",
+                          device="cpu")
+        x = sdev.asarray(np.arange(100, dtype=np.uint64))
+        assert (x * x).to_numpy().tolist() == [i * i for i in range(100)]
+        rec = dryrun.run_cell("mamba2-130m", "decode_32k", False)
+        assert rec["flops"] > 0 and rec["collectives"] is None
+        assert roofline.analyze_record(rec).memory_s > 0
+        from repro_torch.config.base import LM_SHAPES
+        cell = build_cell("qwen1.5-0.5b", LM_SHAPES["decode_32k"],
+                          make_test_mesh(devices=["cpu"]))
+        assert cell.in_shardings[0]["embed"]["embedding"].spec == P()
+        seen = []
+        given(a=st.integers(0, 9))(lambda a: seen.append(a))()
+        assert len(seen) == 10
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
