@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only lm_serve|lm_cells_sharded
 
 Run from the root of a checkout on a host with one CUDA card and the CUDA
 toolkit (``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``). It
@@ -153,8 +154,28 @@ into ``build/repro_torch/`` and then, failing on the first error:
     kept): the tensors given equal the analytic dry run's argument bytes,
     outputs finite (prints warm wall, peak memory, the dry run's counted
     FLOPs and the roofline's one-card bound); then the analytic dry run
-    of the three cells on the 16x16 production mesh (host only);
-23. prints one JSON line of per-kernel results, the card's name and power
+    of the three cells on the 16x16 production mesh (host only), with
+    each cell's collective census (a DTensor trace on ``meta`` over a
+    ``fake`` process group) and the roofline's collective term;
+23. the same three cells across ranks (``lm_cells_sharded``): one process
+    per visible card (``repro_torch.distributed.spawn``, ``nccl``), the
+    mesh ``make_test_mesh(n)`` ((1, 1) on one card, (2, 2) on four), each
+    global batch phase 22's cut times the data axis, executed by
+    ``Cell.run`` as DTensors under the cells' shardings: every rank's
+    local argument bytes equal the dry run's on that mesh (prints each
+    rank's cold and warm wall, peak memory and ``CommDebugMode``
+    collective census; across cards, one warm ``train_4k`` step under
+    ``torch.profiler`` by kind of kernel); the decode caches hold seeded
+    random keys and values; the gathered outputs held on card 0 against
+    the unsharded cell on the same weights and inputs (loss rtol 1e-3,
+    parameters 5e-3 / 1e-4, logits and caches 2e-3 / 2e-5 reported and
+    held at 2**-5 of their largest value, the gradients through the
+    first step's AdamW moments and norm at 2**-3; on one card all but the
+    moments bit-identical); the 1-bit sign path on the gathered
+    ``train_4k`` gradients through K1/K2 bit-identical to an eager CPU
+    device; across cards, two planted faults (a gradient's and a
+    forward's sum over ranks skipped) must fail those checks;
+24. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -1005,8 +1026,10 @@ def profile_ticks(step, n_ticks: int) -> dict | None:
     they do not overlap) and their count, per call; the idle share is 1 -
     device time / the unprofiled call's wall. Also the profiled wall and
     the five most frequent device events and the five longest (name,
-    count and ms per call). ``None`` when the profiler saw no device
-    events."""
+    count and ms per call), and the device time per call by kind of
+    kernel (``nccl`` collectives; float32 GEMMs, which run outside the
+    tensor cores; other GEMMs; the rest). ``None`` when the profiler saw
+    no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1023,9 +1046,12 @@ def profile_ticks(step, n_ticks: int) -> dict | None:
             step()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+    # Device kernels only: a collective's annotation (``nccl:...``) spans
+    # its kernel on the device timeline and would count it twice.
     dev = [(evt.key, evt.count, evt.self_device_time_total)
            for evt in prof.key_averages()
-           if evt.device_type == DeviceType.CUDA]
+           if evt.device_type == DeviceType.CUDA
+           and not getattr(evt, "is_user_annotation", False)]
     dev_us = sum(us for _, _, us in dev)
     if dev_us == 0:
         return None
@@ -1034,12 +1060,25 @@ def profile_ticks(step, n_ticks: int) -> dict | None:
         return [(k[:48], n / n_ticks, us / 1e3 / n_ticks)
                 for k, n, us in events]
 
+    def kind(name: str) -> str:
+        low = name.lower()
+        if "nccl" in low:
+            return "nccl"
+        if any(m in low for m in ("gemm", "nvjet", "xmma", "cutlass")):
+            return ("gemm float32" if any(m in low for m in (
+                "sgemm", "f32f32_f32f32", "_sss", "simt")) else "gemm other")
+        return "other"
+
+    kinds = collections.Counter()
+    for name, _, us in dev:
+        kinds[kind(name)] += us / 1e3 / n_ticks
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
             "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall_ms,
             "device_ops": sum(n for _, n, _ in dev) / n_ticks,
             "top_ops": per_call(sorted(dev, key=lambda e: -e[1])[:5]),
-            "top_time": per_call(sorted(dev, key=lambda e: -e[2])[:5])}
+            "top_time": per_call(sorted(dev, key=lambda e: -e[2])[:5]),
+            "kinds": dict(kinds)}
 
 
 def lm_inputs(cfg, rng, b: int, t: int, device) -> dict:
@@ -2050,22 +2089,32 @@ def lm_cells_run(device: str, seed: int) -> dict:
               f"({rec['flops'] * rec['n_devices'] / 1e12:.1f} global; "
               f"analytic {p.analytic_flops_total / 1e12:.1f}), "
               f"{rec['memory']['argument_size_in_bytes']:,} argument bytes "
-              f"per device, trace {rec['lower_compile_s']} s; roofline "
-              f"compute {p.compute_s * 1e3:.3f} ms, memory "
-              f"{p.memory_s * 1e3:.3f} ms ({p.dominant})")
+              f"per device, trace {rec['lower_compile_s']} s; collective "
+              f"census ({rec['census_s']} s) "
+              + (", ".join(f"{k} {v:,.0f} B" for k, v in
+                           rec["collectives"].items())
+                 if rec["collectives"] else
+                 f"failed: {rec.get('collectives_error')}")
+              + f"; roofline compute {p.compute_s * 1e3:.3f} ms, memory "
+              f"{p.memory_s * 1e3:.3f} ms, collective "
+              f"{p.collective_s * 1e3:.3f} ms ({p.dominant})")
     print(f"dry run on 16x16: {time.perf_counter() - t:.1f} s")
     return out
 
 
-def lm_cell_args(cell, cfg, dev, seed: int) -> tuple:
+def lm_cell_args(cell, cfg, dev, seed: int, place=None) -> tuple:
     """Real tensors for a cell's ``meta`` arguments on ``dev``: the
     parameters drawn by ``init_params`` from a ``torch.Generator`` seeded
-    0 (cast as the specs are), AdamW state and caches as zeros, token ids
-    and positions from a generator seeded ``seed``."""
+    0 (cast as the specs are), AdamW state as zeros (step 0), decode
+    caches as standard normal values from a generator seeded ``seed + 1``
+    (every ring slot holds a key and a value the step attends to), token
+    ids and positions from a generator seeded ``seed``. ``place(x,
+    sharding)``, when given, takes each state or cache leaf as it is made
+    (a sharded run keeps only its rank's part)."""
     import torch
     from repro_torch.models import model as lm
     from repro_torch.models.tree import tree_map
-    from repro_torch.train.optimizer import adamw_init
+    place = place or (lambda x, _sharding: x)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
     params = tree_map(lambda p, spec: p.to(spec.dtype), params,
@@ -2074,7 +2123,9 @@ def lm_cell_args(cell, cfg, dev, seed: int) -> tuple:
     kind = cell.shape.kind
     if kind == "train":
         tok = cell.args[2]["tokens"]
-        return (params, adamw_init(params),
+        return (params, tree_map(lambda spec, sh: place(torch.zeros(
+                    spec.shape, dtype=spec.dtype, device=dev), sh),
+                    cell.args[1], cell.in_shardings[1]),
                 {"tokens": torch.randint(0, cfg.vocab_size, tok.shape,
                                          generator=gen, device=dev,
                                          dtype=tok.dtype)})
@@ -2083,8 +2134,10 @@ def lm_cell_args(cell, cfg, dev, seed: int) -> tuple:
         return (params, {"tokens": torch.randint(
             0, cfg.vocab_size, tok.shape, generator=gen, device=dev,
             dtype=tok.dtype)})
-    caches = tree_map(lambda c: torch.zeros(c.shape, dtype=c.dtype,
-                                            device=dev), cell.args[1])
+    fill = torch.Generator(device=dev).manual_seed(seed + 1)
+    caches = tree_map(lambda spec, sh: place(torch.randn(
+        spec.shape, generator=fill, dtype=spec.dtype, device=dev), sh),
+        cell.args[1], cell.in_shardings[1])
     tok, pos = cell.args[2], cell.args[3]
     token = torch.randint(0, cfg.vocab_size, tok.shape, generator=gen,
                           device=dev, dtype=tok.dtype)
@@ -2108,6 +2161,481 @@ def one_card_bound(roofline, arch: str, name: str, cut: int) -> dict:
     compute, memory = flops / roofline.PEAK_FLOPS, nbytes / roofline.HBM_BW
     return {"flops": flops, "bytes": nbytes, "compute_s": compute,
             "memory_s": memory, "bound_s": max(compute, memory)}
+
+
+# output -> (rtol, atol) of the reference's checks of a sharded run
+# (tests/distributed/test_multidevice.py): the bfloat16 train step's loss
+# and float32 parameters, and (its MoE check's) the serving logits and
+# caches.
+SHARDED_TOL = {"loss": (1e-3, 0.0), "params": (5e-3, 1e-4),
+               "logits": (2e-3, 2e-5), "caches": (2e-3, 2e-5)}
+# output -> the largest |a - b| / max |b| of any leaf a run across ranks
+# may show. The serving logits and caches are bfloat16, whose sums a
+# sharded run reorders: one rounding apart is 2**-8 of a value, above the
+# rtol of SHARDED_TOL, so they are held at eight roundoff units of the
+# output's largest magnitude (the element-wise ratio to SHARDED_TOL is
+# reported). The train step's gradients, read through the AdamW moments
+# of the first step (mu = 0.1 g, nu = 0.05 g**2; its learning rate is 0,
+# so the parameters cannot show them) and the global norm, come from
+# bfloat16 products whose partial sums the data shards round apart: held
+# at 2**-3 of each leaf's largest magnitude. Each planted fault of
+# SHARDED_FAULTS (a sum over ranks skipped) must read above a limit, and
+# the phase fails if one does not.
+SHARDED_MAX_REL = {"logits": 2.0 ** -5, "caches": 2.0 ** -5,
+                   "grad_norm": 2.0 ** -3, "mu": 2.0 ** -3, "nu": 2.0 ** -3}
+# fault (see _plant) -> the cells its control run repeats (across ranks
+# only: on one rank nothing is summed over ranks)
+SHARDED_FAULTS = {"grad_sums_kept": ("train_4k",),
+                  "partial_sums_kept": ("decode_32k",)}
+
+
+def lm_cells_sharded(device: str, build, seed: int,
+                     ranks: int | None = None) -> dict:
+    """Phase 23 (``lm_cells_sharded``): qwen1.5-0.5b's ``train_4k``,
+    ``prefill_32k`` and ``decode_32k`` cells executed across one rank per
+    visible card (``ranks`` CPU ranks on ``gloo`` when ``device`` is the
+    CPU, at the smoke config and sequence length 16) as DTensors under
+    their shardings, through ``launch.steps.Cell.run`` over
+    ``make_test_mesh(n)``; each global batch is phase 22's one-card cut
+    times the data axis. See :func:`sharded_cells_rank` for what each rank
+    does; here the results are printed rank by rank and checked: local
+    argument bytes equal the dry run's on that mesh, the gathered outputs
+    within :data:`SHARDED_TOL` and :data:`SHARDED_MAX_REL` of the
+    unsharded run on card 0 (bit for bit on one rank, but for the
+    moments), the 1-bit path on the gathered gradients bit-identical to
+    an eager CPU device. Across ranks, each fault of
+    :data:`SHARDED_FAULTS` is planted in a second spawn and must fail
+    those checks."""
+    import torch
+    from repro_torch.distributed.spawn import run_ranks
+    on_card = device != "cpu"
+    n = torch.cuda.device_count() if on_card else ranks
+    if on_card:
+        torch.cuda.empty_cache()  # phase 22's cached blocks
+        print(f"phase 23: the parent holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+              f"on card 0 while {n} ranks run")
+    t = time.perf_counter()
+    res = run_ranks(sharded_cells_rank, n, device, seed, device=device,
+                    timeout_s=900)
+    wall = time.perf_counter() - t
+    mesh = res[0]["mesh"]
+    print(f"sharded cells over {n} {'card' if n == 1 else 'cards'}, mesh "
+          f"{tuple(mesh)} (data, model), {LAUNCH_ARCH} "
+          f"{'full width' if on_card else 'smoke'}: {wall:.1f} s with the "
+          f"ranks' start")
+    out = {"ranks": n, "mesh": list(mesh), "wall_s": wall, "cells": {}}
+    faults = []  # printed first, every cell, then failed on together
+    for name, _ in LAUNCH_CUTS:
+        c0 = res[0]["cells"][name]
+        errs = c0["errors"]
+        print(f"  {name} at {c0['batch']} x {c0['seq']}: against the "
+              f"unsharded cell on card 0 (plain call {c0['plain_s']:.3f} "
+              f"s): " + "; ".join(_error_text(k, e)
+                                  for k, e in errs.items()))
+        for r, rr in enumerate(res):
+            c = rr["cells"][name]
+            if c["local_arg_bytes"] != c["dry_arg_bytes"]:
+                faults.append(f"{name} rank {r}: {c['local_arg_bytes']} "
+                              f"local argument bytes, the dry run says "
+                              f"{c['dry_arg_bytes']}")
+            print(f"    rank {r}: {c['local_arg_bytes']:,} local argument "
+                  f"bytes (dry run {c['dry_arg_bytes']:,}); cold "
+                  f"{c['cold_s']:.3f} s (collective census on), warm "
+                  f"{c['warm_s']:.3f} s; peak {c['peak_gib']:.2f} GiB; "
+                  f"census: " + (", ".join(
+                      f"{k} {v}" for k, v in c["comm_counts"].items())
+                      or "no collective") + "; bytes " + (", ".join(
+                      f"{k} {v:,}" for k, v in c["comm_bytes"].items())
+                      or "0"))
+        if "profile" in c0:
+            prof = c0["profile"]
+            print(f"    rank 0, one warm step under torch.profiler: "
+                  f"{prof['wall_ms']:.1f} ms unprofiled "
+                  f"({prof['profiled_wall_ms']:.1f} profiled), device "
+                  f"busy {prof['device_ms']:.1f} ms, idle share "
+                  f"{prof['idle_share']:.3f}, {prof['device_ops']:.0f} "
+                  f"device ops; by kind (ms): " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in prof["kinds"].items())
+                  + "; longest (name, count, ms): " + "; ".join(
+                      f"{k} {n:.0f} {ms:.1f}"
+                      for k, n, ms in prof["top_time"]))
+        faults += [f"{name} {m}" for m in _sharded_faults(errs, n)]
+        out["cells"][name] = {
+            "batch": c0["batch"], "errors": errs,
+            "profile": c0.get("profile"),
+            "ranks": [{k: rr["cells"][name][k] for k in (
+                "warm_s", "cold_s", "peak_gib", "local_arg_bytes",
+                "comm_counts", "comm_bytes")} for rr in res]}
+    ob = res[0]["one_bit"]
+    print(f"  1-bit path on the gathered train_4k gradients on rank 0 "
+          f"({ob['leaves']} leaves, {ob['words']} wire words): wire "
+          f"bitmaps {'equal' if ob['wires_equal'] else 'DIFFER'}, deq and "
+          f"err {'equal' if ob['deq_err_equal'] else 'DIFFER'}, EngineStats"
+          f" {'equal' if ob['stats_equal'] else 'DIFFER'} against an eager "
+          f"CPU device; wall {ob['card_s']:.2f} s card / {ob['cpu_s']:.2f} "
+          f"s CPU; K1/K2 launches {ob['launches']}")
+    if not (ob["wires_equal"] and ob["deq_err_equal"] and ob["stats_equal"]):
+        faults.append("1-bit path on the sharded gradients: the card and "
+                      "the CPU differ")
+    if on_card and not all(ob["launches"].get(k, 0) > 0 for k in K12):
+        faults.append(f"1-bit path: launches {ob['launches']}")
+    out["controls"] = {}
+    for fault, cells in SHARDED_FAULTS.items() if n > 1 else ():
+        t = time.perf_counter()
+        ctl = run_ranks(sharded_cells_rank, n, device, seed, fault, cells,
+                        device=device, timeout_s=900)[0]
+        print(f"  control, fault '{fault}' planted "
+              f"({time.perf_counter() - t:.1f} s):")
+        for name in cells:
+            errs = ctl["cells"][name]["errors"]
+            caught = _sharded_faults(errs, n)
+            print(f"    {name}: " + "; ".join(_error_text(k, e)
+                                             for k, e in errs.items())
+                  + f" -> {'caught' if caught else 'NOT CAUGHT'}")
+            if not caught:
+                faults.append(f"{name}: the checks pass with the fault "
+                              f"'{fault}' planted")
+            out["controls"][f"{fault}/{name}"] = errs
+    check(not faults, "phase 23: " + "; ".join(faults))
+    out["one_bit"] = ob
+    out["launches"] = ob["launches"]
+    return out
+
+
+def _error_text(key: str, e: dict) -> str:
+    """One output's reading against the unsharded run."""
+    if e["equal"]:
+        return f"{key} bit-identical"
+    text = (f"{key} max abs err {e['max_abs']:.3g} (max rel "
+            f"{e['max_rel']:.3g}")
+    if e["leaves"] > 1:
+        text += f" at {e['where']}, norm rel {e['norm_rel']:.3g}"
+    if key in SHARDED_TOL:
+        text += f", {e['worst']:.3g} x its tolerance"
+    return text + ")"
+
+
+def _sharded_faults(errs: dict, n: int) -> list[str]:
+    """The readings of one cell that fail phase 23's checks: on one rank
+    every output but the moments bit-identical; otherwise within
+    :data:`SHARDED_MAX_REL` where it has a limit, else within
+    :data:`SHARDED_TOL`."""
+    out = []
+    for key, e in errs.items():
+        if n == 1 and not e["equal"] and key not in ("mu", "nu",
+                                                     "grad_norm"):
+            out.append(f"{key}: the (1, 1) run differs from the unsharded "
+                       f"one (max abs err {e['max_abs']:.3g})")
+        elif key in SHARDED_MAX_REL:
+            if e["max_rel"] > SHARDED_MAX_REL[key]:
+                out.append(f"{key}: max abs err {e['max_abs']:.3g} is "
+                           f"{e['max_rel']:.3g} of the largest value, above "
+                           f"{SHARDED_MAX_REL[key]}")
+        elif e["worst"] > 1.0:
+            rtol, atol = SHARDED_TOL[key]
+            out.append(f"{key}: {e['worst']:.3g} x the tolerance (rtol "
+                       f"{rtol}, atol {atol}; max abs err "
+                       f"{e['max_abs']:.3g})")
+    return out
+
+
+def _view(kind: str, res, seq: int) -> dict:
+    """The outputs a sharded run is held to: the train loss, gradient
+    norm, updated parameters and AdamW moments; the serving logits and
+    caches (decode: the ring slot the step wrote, at position
+    ``seq - 1``)."""
+    from repro_torch.models.tree import tree_leaves
+    if kind == "train":
+        return {"loss": res[2]["loss"], "grad_norm": res[2]["grad_norm"],
+                "params": res[0], "mu": res[1]["mu"], "nu": res[1]["nu"]}
+    if kind == "prefill":
+        return {"logits": res[0], "caches": res[1]}
+    slot = seq - 1  # every row's position (lm_cell_args), ring size seq
+    return {"logits": res[0],
+            "caches": [c[:, :, slot] for c in tree_leaves(res[1])]}
+
+
+def _errors(got: dict, want: dict) -> dict:
+    """Per output: bit equality; the max abs error; the largest over its
+    leaves of ``max |a - b| / max |b|`` (``max_rel``, at the leaf
+    ``where``) and of ``||a - b|| / ||b||`` (``norm_rel``); and, where
+    :data:`SHARDED_TOL` has its tolerance, the largest ``|a - b| / (atol
+    + rtol |b|)``."""
+    import torch
+    from repro_torch.models.tree import tree_items
+    out = {}
+    for key in got:
+        rtol, atol = SHARDED_TOL.get(key, (0.0, 0.0))
+        e = {"equal": True, "max_abs": 0.0, "max_rel": 0.0, "where": "",
+             "norm_rel": 0.0, "worst": 0.0, "leaves": 0}
+        for (path, g), (_, w) in zip(tree_items(got[key]),
+                                     tree_items(want[key])):
+            g, w = g.detach(), w.detach().to(g.device)
+            e["leaves"] += 1
+            e["equal"] = e["equal"] and torch.equal(g, w)
+            d = (g.float() - w.float()).abs()
+            wf = w.float()
+            rel = float(d.max()) / max(float(wf.abs().max()), 1e-30)
+            e["max_abs"] = max(e["max_abs"], float(d.max()))
+            if rel > e["max_rel"] or not e["where"]:
+                e["max_rel"], e["where"] = max(rel, e["max_rel"]), path
+            e["norm_rel"] = max(e["norm_rel"], float(
+                d.norm() / max(float(wf.norm()), 1e-30)))
+            if key in SHARDED_TOL:
+                e["worst"] = max(e["worst"], float(
+                    (d / (atol + rtol * wf.abs())).max()))
+        out[key] = e
+    return out
+
+
+def _plant(fault: str) -> None:
+    """Install the fault ``fault`` in this rank. Each keeps this rank's
+    own partial sums where the program sums them over ranks (no
+    all-reduce or reduce-scatter): ``grad_sums_kept`` in the gradients'
+    ``layout_like`` (the embedding's and final norm's gradients lose their
+    sum over the data shards; the forward is untouched),
+    ``partial_sums_kept`` in every explicit ``DTensor.redistribute`` (the
+    model's ``token_einsum`` sums, forward)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.train import trainer
+
+    def kept(x):
+        if not any(pl.is_partial() for pl in x.placements):
+            return x
+        return DTensor.from_local(
+            x.to_local(), x.device_mesh,
+            [Replicate() if pl.is_partial() else pl for pl in x.placements],
+            shape=x.shape, stride=x.stride())
+
+    if fault == "grad_sums_kept":
+        real_layout = trainer.layout_like
+        trainer.layout_like = lambda x, ref: real_layout(
+            kept(x) if isinstance(x, DTensor) else x, ref)
+    elif fault == "partial_sums_kept":
+        real = DTensor.redistribute
+        DTensor.redistribute = (lambda self, *a, **kw:
+                                real(kept(self), *a, **kw))
+    else:
+        raise ValueError(f"no fault {fault!r}")
+
+
+def sharded_cells_rank(rank: int, world: int, device: str, seed: int,
+                       fault: str | None = None,
+                       cells: tuple | None = None) -> dict:
+    """One rank of phase 23. For each cell: its arguments placed by its
+    ``in_shardings`` (state and cache leaves made as this rank's shard
+    only), their local bytes beside ``dryrun.argument_bytes`` on the
+    mesh; on rank 0 first the unsharded ``cell.fn`` on the same weights
+    and inputs; a cold ``Cell.run`` under ``CommDebugMode`` and the dry
+    run's byte census, its outputs gathered and held (rank 0) against the
+    unsharded ones; for ``train_4k`` the step's gradients
+    (``trainer.loss_and_grads`` on the placed state, gathered to rank 0);
+    then a warm run (wall ending in a read-back, peak memory) and, across
+    ranks, ``train_4k`` twice more, the second under ``torch.profiler``
+    (:func:`profile_ticks`). Last, on rank
+    0, the 1-bit sign path on those gradients through K1/K2 against an
+    eager CPU device. With ``fault`` (see :func:`_plant`) only
+    ``cells`` run, through their comparison."""
+    import torch
+    import torch.distributed.tensor as dtensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.config.base import (LM_SHAPES, ShapeConfig, TrainConfig,
+                                         get_config, get_smoke_config)
+    from repro_torch.distributed.constraints import use_mesh
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  gather_tree, placements,
+                                                  shard_box)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import device_mesh, make_test_mesh
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.train import trainer
+    on_card = device != "cpu"
+    dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+    cfg = get_config(LAUNCH_ARCH) if on_card \
+        else get_smoke_config(LAUNCH_ARCH)
+    if not on_card:  # rehearsal: the smoke config through the same builder
+        steps.get_config = lambda arch: cfg
+    mesh = make_test_mesh(world) if on_card \
+        else make_test_mesh(devices=["cpu"] * world)
+    dm = device_mesh(mesh)
+    if fault is not None:
+        _plant(fault)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def place(x, sharding):  # this rank's part of a full leaf
+        part = dtensor.zeros(
+            tuple(x.shape), dtype=x.dtype, device_mesh=dm,
+            placements=placements(sharding.spec, sharding.mesh.axis_names,
+                                  sharding.mesh.axis_sizes))
+        part.to_local().copy_(x[tuple(slice(s, s + k)
+                                      for s, k in shard_box(part))])
+        return part
+
+    def read_back(kind, res):
+        x = res[2]["loss"] if kind == "train" else res[0]
+        return getattr(x, "to_local", lambda: x)().float().cpu()
+
+    out = {"mesh": mesh.axis_sizes, "cells": {}}
+    grads = None
+    for name, cut in LAUNCH_CUTS:
+        if cells is not None and name not in cells:
+            continue
+        g = LM_SHAPES[name]
+        seq = g.seq_len if on_card else 16
+        shape = ShapeConfig(name, g.kind, seq, cut * mesh.shape["data"])
+        cell = steps.build_cell(LAUNCH_ARCH, shape, mesh)
+        r = {"batch": shape.global_batch, "seq": seq,
+             "dry_arg_bytes": dryrun.argument_bytes(cell, mesh)}
+        want = None
+        if rank == 0:
+            plain = lm_cell_args(cell, cfg, dev, seed)
+            sync()
+            t = time.perf_counter()
+            res = cell.fn(*plain)
+            sync()
+            r["plain_s"] = time.perf_counter() - t
+            want = tree_map(lambda x: x.detach().clone(),
+                            _view(g.kind, res, seq))
+            del plain, res
+            if on_card:
+                torch.cuda.empty_cache()
+        placed = distribute_tree(
+            lm_cell_args(cell, cfg, dev, seed, place=place),
+            cell.in_shardings, dm)
+        r["local_arg_bytes"] = sum(x.to_local().numel()
+                                   * x.to_local().element_size()
+                                   for x in tree_leaves(placed))
+        sync()
+        t = time.perf_counter()
+        with CommDebugMode() as comm, dryrun.collective_bytes() as nbytes:
+            res = cell.run(placed, dm)
+            read_back(g.kind, res)
+        r["cold_s"] = time.perf_counter() - t
+        r["comm_counts"] = {str(k).rsplit(".", 1)[-1]: v
+                            for k, v in comm.get_comm_counts().items()}
+        r["comm_bytes"] = dict(nbytes.bytes)
+        got = gather_tree(_view(g.kind, res, seq))
+        if rank == 0:
+            r["errors"] = _errors(got, want)
+        del got, want, res
+        if fault is not None:
+            out["cells"][name] = r
+            continue
+        if g.kind == "train":
+            with use_mesh(dm), implicit_replication():
+                grads = trainer.loss_and_grads(cfg, TrainConfig(), placed[0],
+                                               placed[2])[2]
+            full = gather_tree(grads)  # every rank takes part
+            grads = full if rank == 0 else None
+            del full
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync()
+        t = time.perf_counter()
+        res = cell.run(placed, dm)
+        read_back(g.kind, res)
+        r["warm_s"] = time.perf_counter() - t
+        r["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if on_card else 0.0)
+        del res
+        if on_card and world > 1 and g.kind == "train":
+            r["profile"] = profile_ticks(
+                lambda: read_back(g.kind, cell.run(placed, dm)), 1)
+        del placed, cell
+        if on_card:
+            torch.cuda.empty_cache()
+        out["cells"][name] = r
+    if grads is not None:  # rank 0, after train_4k
+        out["one_bit"] = one_bit_run(grads, dev, _build)
+    return out
+
+
+def one_bit_run(grads, dev, build) -> dict:
+    """``compress_grads_sign_with_feedback`` on ``grads`` (zero error) on
+    a fused ``pum.device(width=32)`` on ``dev`` and on an eager CPU
+    device: wire bitmaps, ``deq``, ``err`` and ``EngineStats`` compared,
+    the K1/K2 launches of the card's run counted."""
+    import numpy as np
+    import torch
+    import repro_torch.pum as pum
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.train import grad_compress as gc
+    err = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                         device=x.device), grads)
+    wires = {"card": [], "cpu": []}
+    real_wire = gc.pum_wire_bitmap
+
+    def run(label, pdev, g, e):
+        def spy(s, m, d=None):
+            w = real_wire(s, m, d)
+            wires[label].append(w)
+            return w
+        gc.pum_wire_bitmap = spy
+        try:
+            t = time.perf_counter()
+            res = gc.compress_grads_sign_with_feedback(g, e, device=pdev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return res, time.perf_counter() - t
+        finally:
+            gc.pum_wire_bitmap = real_wire
+
+    card_dev = pum.device(width=32, fuse=True, device=dev)
+    host_dev = pum.device(width=32, fuse=False, device="cpu")
+    reset_launches(build)
+    (cq, ce), card_s = run("card", card_dev, grads, err)
+    launches = {k: build.LAUNCHES.get(k, 0) for k in K12}
+    (hq, he), cpu_s = run("cpu", host_dev,
+                          tree_map(lambda x: x.cpu(), grads),
+                          tree_map(lambda x: x.cpu(), err))
+    return {"leaves": len(tree_leaves(grads)),
+            "words": sum(len(w) for w in wires["card"]),
+            "wires_equal": len(wires["card"]) == len(wires["cpu"]) > 0
+            and all(np.array_equal(a, b)
+                    for a, b in zip(wires["card"], wires["cpu"])),
+            "deq_err_equal": tree_equal(cq, hq) and tree_equal(ce, he),
+            "stats_equal": card_dev.stats.as_dict()
+            == host_dev.stats.as_dict(),
+            "card_s": card_s, "cpu_s": cpu_s, "launches": launches}
+
+
+ALONE = ("lm_serve", "lm_cells_sharded")
+
+
+def run_alone(argv: list[str]) -> int:
+    """``--only NAME``: one phase of :data:`ALONE` by itself (phase 20 on
+    one card; phase 23 over every visible card, its fault controls
+    included when there are several), the kernels it launches built
+    first; no result line."""
+    if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ALONE:
+        print(f"usage: chip_smoke.py [--only {'|'.join(ALONE)}]",
+              file=sys.stderr)
+        return 2
+    from repro_torch.config.base import get_smoke_config
+    from repro_torch.kernels import _build, bit_transpose, codegen
+    from repro_torch.pum import capture as capture_mod
+    from repro_torch.serve.engine import ServeEngine
+    t = time.perf_counter()
+    if argv[1] == "lm_serve":
+        programs = programs_of(capture_mod, lambda: ServeEngine(
+            get_smoke_config(SERVE_ARCH), max_batch=4, max_len=256,
+            eos_id=-1, device="cpu").close())
+        _build.build_many([bit_transpose.build_item()]
+                          + [codegen.build_item(p) for p in programs])
+        lm_serve("cuda", _build, programs[0], SEED)
+    else:
+        _build.build_many([bit_transpose.build_item()])
+        lm_cells_sharded("cuda", _build, SEED)
+    print(f"[time] {argv[1]} alone: {time.perf_counter() - t:.1f} s")
+    return 0
 
 
 def main() -> int:
@@ -2146,6 +2674,8 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    if len(sys.argv) > 1:
+        return run_alone(sys.argv[1:])
     cuda = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     results = {}
@@ -3052,7 +3582,11 @@ def main() -> int:
     shard = launch_and_shard("cuda", _build, SEED)
     clock.stamp("22")
 
-    # -- 23. results ----------------------------------------------------- #
+    # -- 23. the LM cells across ranks under their shardings ---------- #
+    sharded = lm_cells_sharded("cuda", _build, SEED)
+    clock.stamp("23")
+
+    # -- 24. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -3065,8 +3599,10 @@ def main() -> int:
          "launches": launches["bit_transpose32"]
          + serve["serve_launches"]["bit_transpose32"]
          + train["train_launches"]["bit_transpose32"]
-         + shard["shard_launches"]["bit_transpose32"],
+         + shard["shard_launches"]["bit_transpose32"]
+         + sharded["launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
+         "launches_cells_sharded": sharded["launches"]["bit_transpose32"],
          "launches_shard_words": shard["shard_launches"]["bit_transpose32"],
          "launches_serve": serve["serve_launches"]["bit_transpose32"],
          "launches_train": train["train_launches"]["bit_transpose32"],
@@ -3091,8 +3627,10 @@ def main() -> int:
          "launches": launches["run_program_cuda"]
          + serve["serve_launches"]["run_program_cuda"]
          + train["train_launches"]["run_program_cuda"]
-         + shard["shard_launches"]["run_program_cuda"],
+         + shard["shard_launches"]["run_program_cuda"]
+         + sharded["launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
+         "launches_cells_sharded": sharded["launches"]["run_program_cuda"],
          "launches_shard_words": shard["shard_launches"]["run_program_cuda"],
          "launches_serve": serve["serve_launches"]["run_program_cuda"],
          "launches_train": train["train_launches"]["run_program_cuda"],

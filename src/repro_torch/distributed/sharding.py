@@ -19,8 +19,13 @@ A spec is the port's :class:`P`, a tuple whose entries mirror
 ``jax.sharding.PartitionSpec``'s (``None``, an axis name, or a tuple of
 names); a :class:`Sharding` pairs it with a :class:`Mesh`. The trees
 returned have the structure of the tree given (``models/tree.py``).
-Nothing here places a tensor: the dry run reads the per-device shapes
-(:func:`local_shape`), and one process runs every cell unsharded.
+
+:func:`placements` turns a spec into DTensor placements over a mesh's
+axes, and :func:`distribute_tree` places a tree of tensors by a tree of
+shardings on a ``DeviceMesh`` (``launch/mesh.py`` ``device_mesh``): each
+rank then holds the :func:`local_shape` of every leaf, which is what the
+dry run counts as its argument bytes. :func:`gather_tree` is the
+inverse, every leaf as its full tensor.
 """
 
 from __future__ import annotations
@@ -238,6 +243,90 @@ def replicated(mesh: Mesh, tree: Any):
     return tree_map(lambda _: Sharding(mesh, P()), tree)
 
 
+def _names(entry) -> tuple[str, ...]:
+    return (() if entry is None
+            else entry if isinstance(entry, tuple) else (entry,))
+
+
+def placements(spec: P, axis_names: tuple[str, ...],
+               axis_sizes: tuple[int, ...] | None = None) -> tuple:
+    """DTensor placements, one per mesh axis of ``axis_names``, for a
+    tensor laid out by ``spec``: each entry shards its tensor dim over
+    the axes it names (a tuple entry over several, in mesh order, as
+    ``PartitionSpec`` does); an axis no entry names replicates, and so
+    does an axis of size 1 in ``axis_sizes`` (the same layout; DTensor
+    cannot reshape a dim sharded even over one rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: list = [Replicate()] * len(axis_names)
+    taken = set()
+    for dim, entry in enumerate(spec):
+        idx = [axis_names.index(a) for a in _names(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: entry {entry} names axes out of "
+                             f"mesh order {axis_names}")
+        for i in idx:
+            if i in taken:
+                raise ValueError(f"{spec} names axis {axis_names[i]} "
+                                 f"twice")
+            taken.add(i)
+            if axis_sizes is None or axis_sizes[i] > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _place(x: torch.Tensor, sharding: Sharding, device_mesh):
+    """``x`` as a DTensor laid out by ``sharding`` on ``device_mesh``: a
+    plain tensor (the same on every rank) is split, a DTensor is
+    redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    pl = placements(sharding.spec, sharding.mesh.axis_names,
+                    sharding.mesh.axis_sizes)
+    if isinstance(x, DTensor):
+        return x.redistribute(device_mesh, pl)
+    return distribute_tensor(x, device_mesh, pl)
+
+
+def distribute_tree(tree: Any, shardings: Any, device_mesh) -> Any:
+    """``tree`` placed leaf by leaf by ``shardings`` (a tree of
+    :class:`Sharding` of the same structure, or one for a whole
+    subtree); a ``None`` sharding leaves its subtree as it is, as a
+    ``None`` entry of ``out_shardings`` does in the reference."""
+    if shardings is None:
+        return tree
+    if isinstance(shardings, Sharding):
+        return tree_map(lambda x: _place(x, shardings, device_mesh), tree)
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, shardings[k], device_mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute_tree(v, s, device_mesh)
+                          for v, s in zip(tree, shardings, strict=True))
+    raise TypeError(f"no sharding for a {type(tree).__name__} leaf")
+
+
+def gather_tree(tree: Any) -> Any:
+    """Every DTensor leaf of ``tree`` as its full tensor on this rank
+    (plain leaves unchanged)."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)
+
+
+def shard_box(x) -> list[tuple[int, int]]:
+    """``(start, size)`` per dim of the part of DTensor ``x`` this rank
+    holds: each ``Shard`` placement splits its dim as ``torch.chunk``
+    does, mesh dim by mesh dim in order."""
+    coord = x.device_mesh.get_coordinate()
+    box = [(0, int(n)) for n in x.shape]
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard():
+            start, size = box[pl.dim]
+            chunk = -(-size // x.device_mesh.size(i))
+            lo = min(coord[i] * chunk, size)
+            box[pl.dim] = (start + lo, min(chunk, size - lo))
+    return box
+
+
 def local_shape(shape, spec: P, mesh: Mesh) -> tuple[int, ...]:
     """The per-device shape of a ``shape`` tensor laid out by ``spec``
     over ``mesh``: each dim divided (rounding up, as an uneven shard
@@ -246,9 +335,7 @@ def local_shape(shape, spec: P, mesh: Mesh) -> tuple[int, ...]:
     out = []
     for i, dim in enumerate(shape):
         entry = spec[i] if i < len(spec) else None
-        names = (() if entry is None
-                 else entry if isinstance(entry, tuple) else (entry,))
-        n = math.prod(sizes[a] for a in names)
+        n = math.prod(sizes[a] for a in _names(entry))
         out.append(-(-int(dim) // n))
     return tuple(out)
 

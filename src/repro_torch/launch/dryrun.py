@@ -7,9 +7,9 @@ production meshes and trace it on ``meta`` tensors.
 The port's counterpart of ``repro.launch.dryrun``. The reference lowers
 and compiles each cell with XLA over 512 forced host devices and reads
 the compiled program: ``memory_analysis()``, ``cost_analysis()`` and a
-collective census of the post-SPMD HLO. PyTorch has no SPMD partitioner
-and no compiled buffer assignment, so the port's record keeps only what
-a trace on ``meta`` tensors (shapes, no storage) can show:
+collective census of the post-SPMD HLO. PyTorch has no compiled buffer
+assignment, so the port's record keeps what traces on ``meta`` tensors
+(shapes, no storage) can show:
 
 * ``flops``: the FLOPs ``torch.utils.flop_counter.FlopCounterMode``
   counts over one call of the cell's ``fn`` (backward included for a
@@ -19,13 +19,24 @@ a trace on ``meta`` tensors (shapes, no storage) can show:
 * ``memory.argument_size_in_bytes``: the bytes of every argument's
   per-device shape (``sharding.local_shape``) under the cell's
   ``in_shardings``;
-* ``lower_compile_s``: the seconds of the ``meta`` trace.
+* ``lower_compile_s``: the seconds of the ``meta`` trace;
+* ``collectives`` (:func:`collective_census`, production meshes only):
+  the cell traced once more as DTensors on ``meta`` tensors over the
+  mesh, one rank of a ``fake`` process group of ``n_devices`` ranks in
+  this process (``launch/steps.py`` ``Cell.run``: arguments placed by
+  their shardings, the model's constraints acting), counting every
+  collective DTensor issues on one rank: bytes by kind of each result
+  (the shape the reference's census reads off each HLO instruction),
+  ``total_weighted`` under :data:`COLLECTIVE_FACTOR`, and
+  ``region_weighted`` 0 (the layers are a Python loop, every layer is
+  traced). A cell whose DTensor trace fails keeps ``collectives: null``
+  and names the failing op in ``collectives_error``.
 
 ``memory.output_size_in_bytes``, ``memory.temp_size_in_bytes``,
 ``memory.generated_code_size_in_bytes``, ``bytes_accessed``,
-``transcendentals``, ``collectives`` and ``hlo_bytes`` have no
-counterpart and are ``null``. :func:`parse_collective_bytes` stays, as
-text code, so the port reads the reference's HLO and records.
+``transcendentals`` and ``hlo_bytes`` have no counterpart and are
+``null``. :func:`parse_collective_bytes` stays, as text code, so the
+port reads the reference's HLO and records.
 """
 
 from __future__ import annotations
@@ -35,12 +46,13 @@ import json
 import math
 import os
 import re
+import sys
 import time
 import traceback
 
 from repro_torch.config.base import ARCH_IDS, LM_SHAPES, shapes_for
 from repro_torch.distributed.sharding import local_shape
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, device_mesh, make_production_mesh
 from repro_torch.launch.steps import Cell, build_cell
 from repro_torch.models.tree import tree_leaves, tree_map
 
@@ -66,8 +78,7 @@ COLLECTIVE_FACTOR = {  # per-chip wire traffic multiplier on local bytes
 
 # Record fields the reference reads from a compiled XLA program and the
 # port has no counterpart for.
-NULL_FIELDS = ("bytes_accessed", "transcendentals", "collectives",
-               "hlo_bytes")
+NULL_FIELDS = ("bytes_accessed", "transcendentals", "hlo_bytes")
 NULL_MEMORY = ("output_size_in_bytes", "temp_size_in_bytes",
                "generated_code_size_in_bytes")
 
@@ -135,6 +146,86 @@ def argument_bytes(cell: Cell, mesh: Mesh) -> int:
     return int(sum(tree_leaves(sizes)))
 
 
+# The collectives DTensor, and the port's own sums over ranks, dispatch,
+# by kind: ``torch.ops._c10d_functional``'s, and DTensor's move of a
+# shard from one dim to another (``_dtensor.shard_dim_alltoall``, counted
+# by its input's bytes).
+FUNCOL_KINDS = {"_c10d_functional.all_reduce": "all-reduce",
+                "_c10d_functional.all_gather_into_tensor": "all-gather",
+                "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+                "_c10d_functional.all_to_all_single": "all-to-all",
+                "_dtensor.shard_dim_alltoall": "all-to-all"}
+
+
+def collective_bytes():
+    """A dispatch mode (a context manager) that sums, by kind, the bytes
+    of every collective dispatched inside it (each counted by its own
+    op: its result's bytes, an all-to-all its input's): its ``bytes``
+    dict. A CPU mesh has no all-to-all (gloo), so there DTensor moves a
+    shard between dims by an all-gather and a slice, and that counts as
+    the all-gather it is."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Census(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes: dict[str, float] = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            kind = FUNCOL_KINDS.get(str(func.overloadpacket))
+            if kind is not None:
+                res = args[0] if kind == "all-to-all" else out
+                self.bytes[kind] = self.bytes.get(kind, 0) + \
+                    res.numel() * res.element_size()
+            return out
+
+    return Census()
+
+
+def _meta_dtensor(x, sharding, dm):
+    """A DTensor of ``x``'s global shape laid out by ``sharding``: rank
+    0's ``meta`` shard (``local_shape``) under the placements."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import placements
+    local = torch.empty(local_shape(x.shape, sharding.spec, sharding.mesh),
+                        dtype=x.dtype, device="meta")
+    return DTensor.from_local(
+        local, dm, placements(sharding.spec, sharding.mesh.axis_names,
+                              sharding.mesh.axis_sizes),
+        shape=x.shape, stride=x.stride())
+
+
+def collective_census(cell: Cell, mesh: Mesh) -> dict:
+    """The collectives one rank issues when ``cell`` runs as DTensors on
+    ``mesh`` (its ``meta`` arguments placed by ``in_shardings``, outputs
+    laid out by ``out_shardings``), on a ``fake`` process group of
+    ``mesh.size`` ranks started and destroyed here (the process must
+    have none). Returns the reference's census schema."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("collective_census: this process already has a "
+                           "process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        dm = device_mesh(mesh, device_type="cpu")
+        args = tree_map(lambda x, sh: _meta_dtensor(x, sh, dm), cell.args,
+                        cell.in_shardings)
+        census = collective_bytes()
+        with census:
+            cell.run(args, dm)
+    finally:
+        dist.destroy_process_group()
+    out = dict(sorted(census.bytes.items()))
+    out["total_weighted"] = sum(COLLECTIVE_FACTOR[k] * v
+                                for k, v in census.bytes.items())
+    out["region_weighted"] = 0.0
+    return out
+
+
 def trace_cell(cell: Cell, mesh: Mesh) -> dict:
     """The analytic record of a built cell over ``mesh``: its ``meta``
     arguments traced through ``fn`` once under ``FlopCounterMode``."""
@@ -151,15 +242,26 @@ def trace_cell(cell: Cell, mesh: Mesh) -> dict:
                      **{k: None for k in NULL_MEMORY}}
     rec["flops"] = float(counter.get_total_flops()) / mesh.size
     rec.update({k: None for k in NULL_FIELDS})
+    rec["collectives"] = None
     return rec
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              overrides: dict | None = None) -> dict:
+    """The record of one cell on a production mesh: :func:`trace_cell`,
+    then its :func:`collective_census` (``null``, with the failing op in
+    ``collectives_error``, when the DTensor trace fails)."""
     shape = LM_SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
     cell = build_cell(arch, shape, mesh, overrides=overrides)
-    return trace_cell(cell, mesh)
+    rec = trace_cell(cell, mesh)
+    t0 = time.time()
+    try:
+        rec["collectives"] = collective_census(cell, mesh)
+    except Exception as e:  # noqa: BLE001 — record the op, keep the cell
+        rec["collectives_error"] = f"{type(e).__name__}: {e}"[:500]
+    rec["census_s"] = round(time.time() - t0, 1)
+    return rec
 
 
 def _fmt(x) -> str:
@@ -175,7 +277,9 @@ def _run_one_inline(arch: str, sname: str, multi_pod: bool,
         print(f"[dryrun] OK   {tag}: flops={rec['flops']:.3e} "
               f"argbytes={_fmt(rec['memory']['argument_size_in_bytes'])} "
               f"temp={_fmt(rec['memory']['temp_size_in_bytes'])} "
-              f"coll=- ({rec['lower_compile_s']}s)", flush=True)
+              f"coll={_fmt((rec['collectives'] or {}).get('total_weighted'))}"
+              f" ({rec['lower_compile_s']}s + census "
+              f"{rec['census_s']}s)", flush=True)
     except Exception as e:  # noqa: BLE001 — report, keep sweeping
         rec = {"arch": arch, "shape": sname,
                "mesh": "2x16x16" if multi_pod else "16x16",

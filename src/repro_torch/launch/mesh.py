@@ -3,10 +3,17 @@
 The port's copy of ``repro.launch.mesh``. A :class:`Mesh` is a plain
 description (axis names and sizes, and the devices it spans when it
 spans real ones); the sharding rules (``distributed/sharding.py``) and
-the cell builders (``launch/steps.py``) read it. Nothing here starts
-``torch.distributed`` or a process group: the production meshes are
-abstract (no devices), as the reference's dry run uses them, and a test
-mesh names the visible cards, or the devices it is given.
+the cell builders (``launch/steps.py``) read it. The production meshes
+are abstract (no devices), as the reference's dry run uses them, and a
+test mesh names the visible cards, or the devices it is given.
+
+:func:`device_mesh` turns a mesh into a
+``torch.distributed.device_mesh.DeviceMesh`` with the same axis names
+and sizes, over the ranks of an initialised process group (one rank per
+device, ``distributed/spawn.py``): the cells then execute as DTensors
+under their specs (``launch/steps.py`` ``Cell.run``), where the
+reference executes ``jax.jit(fn, in_shardings=...)`` over a
+``jax.sharding.Mesh``. Nothing here starts a process group.
 """
 
 from __future__ import annotations
@@ -80,3 +87,29 @@ def data_axes(mesh: Mesh) -> tuple[str, ...]:
 
 def model_axis_size(mesh: Mesh) -> int:
     return mesh.shape["model"] if "model" in mesh.axis_names else 1
+
+
+def device_mesh(mesh: Mesh, device_type: str | None = None):
+    """``mesh`` as a ``DeviceMesh`` over the current process group, axis
+    for axis (rank ``r`` is the ``r``-th device in row-major order).
+
+    The group must be initialised with world size ``mesh.size``.
+    ``device_type`` defaults to the type of ``mesh.devices``; an abstract
+    mesh (no devices) needs it, as the dry run's production meshes do on
+    the ``fake`` backend."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh: no process group is initialised "
+                           "(start the ranks with distributed.spawn)")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"device_mesh: a {mesh.axis_sizes} mesh needs "
+                         f"{mesh.size} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    if device_type is None:
+        if mesh.devices is None:
+            raise ValueError("device_mesh: an abstract mesh needs "
+                             "device_type")
+        device_type = mesh.devices[0].type
+    return init_device_mesh(device_type, mesh.axis_sizes,
+                            mesh_dim_names=mesh.axis_names)

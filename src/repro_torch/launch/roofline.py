@@ -9,9 +9,10 @@ analytic model is the reference's, term for term:
     FLOP count is reported beside it as a cross-check ("hlo_flops_raw");
   * collective bytes come from a record's ``collectives`` census (the
     reference's post-SPMD HLO), the loop-body bucket multiplied by the
-    cell's dominant loop trip count (the layer scan). The port's dry run
-    has no partitioner and records no census, so its collective term is
-    0.
+    cell's dominant loop trip count (the layer scan). The port's census
+    (a DTensor trace, ``launch/dryrun.py``) traces every layer, so its
+    loop-body bucket is 0 and the trip count multiplies nothing; a record
+    without a census has a collective term of 0.
 
 Terms (per device, with the card's constants below):
     compute_s    = analytic_FLOPs / (n_devices * PEAK_FLOPS)
@@ -260,7 +261,7 @@ def analyze_record(rec: dict) -> RooflinePoint:
     n_dev = rec.get("n_devices", 512 if rec["mesh"] == "2x16x16" else 256)
     af = analytic_flops(rec["arch"], rec["shape"])
     ab = analytic_bytes_per_chip(rec["arch"], rec["shape"], n_dev)
-    coll = rec.get("collectives") or {}  # null in the port's records
+    coll = rec.get("collectives") or {}  # null where the census failed
     main_w = coll.get("total_weighted", 0.0) - coll.get("region_weighted", 0.0)
     region_w = coll.get("region_weighted", 0.0)
     coll_bytes = main_w + region_w * loop_trip(rec["arch"], rec["shape"])

@@ -7,8 +7,11 @@ function plus the full argument spec/sharding trees — shared by the
 analytic dry run (``launch/dryrun.py``), the roofline analysis, and
 (with real tensors) the train/serve drivers. The reference's
 ``Cell.lower()`` has no counterpart: the port has no ahead-of-time
-compiler, and a cell's ``fn`` is called on real tensors (or, by the dry
-run, on its ``meta`` arguments).
+compiler. A cell's ``fn`` is called on real tensors in one process (or,
+by the dry run, on its ``meta`` arguments), and :meth:`Cell.run`
+executes it across the ranks of a ``DeviceMesh`` as DTensors under its
+shardings, as the reference's ``jax.jit(fn, in_shardings=...,
+out_shardings=...)(*args)`` does over its mesh.
 """
 
 from __future__ import annotations
@@ -20,13 +23,16 @@ import torch
 
 from repro_torch.config.base import (ModelConfig, ShapeConfig, TrainConfig,
                                      get_config)
+from repro_torch.distributed.constraints import use_mesh
 from repro_torch.distributed.sharding import (P, Sharding, batch_shardings,
                                               cache_shardings,
+                                              distribute_tree,
                                               param_shardings)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import (decode_step, init_cache, init_params,
                                       prefill, torch_dtype)
 from repro_torch.models.tree import tree_map
+from repro_torch.train.grad_compress import init_error
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.trainer import build_train_step
 
@@ -120,6 +126,24 @@ class Cell:
     out_shardings: Any
     donate_argnums: tuple
 
+    def run(self, args: tuple, device_mesh) -> Any:
+        """``fn`` on real ``args`` across the ranks of ``device_mesh``
+        (every rank calls it with the same full tensors, or with DTensors
+        already placed): each argument is placed by ``in_shardings``,
+        ``fn`` runs with the mesh current (the model's constraints act)
+        and with plain tensors it makes treated as replicated, and each
+        output is laid out by ``out_shardings`` (``None`` leaves it as
+        it comes). ``donate_argnums`` is not acted on: the steps already
+        write their donated arguments (params, moments, caches) in
+        place."""
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        placed = distribute_tree(tuple(args), self.in_shardings,
+                                 device_mesh)
+        with use_mesh(device_mesh), implicit_replication():
+            out = self.fn(*placed)
+        return distribute_tree(out, self.out_shardings, device_mesh)
+
 
 def build_cell(arch: str, shape: ShapeConfig, mesh: Mesh,
                tcfg: TrainConfig | None = None,
@@ -145,6 +169,11 @@ def build_cell(arch: str, shape: ShapeConfig, mesh: Mesh,
         o_sh = {"mu": param_shardings(cfg, mesh, opt["mu"], fsdp=opt_fsdp),
                 "nu": param_shardings(cfg, mesh, opt["nu"], fsdp=opt_fsdp),
                 "step": Sharding(mesh, P())}
+        if tcfg.grad_compression:
+            # The step reads and returns the error-feedback buffers; each
+            # takes its parameter's sharding.
+            opt["err"] = init_error(params)
+            o_sh["err"] = p_sh
         b_sh = batch_shardings(mesh, batch)
         fn = build_train_step(cfg, tcfg)
         return Cell(arch, shape, fn, (params, opt, batch),

@@ -8,7 +8,10 @@ divides a low-precision product by a NumPy scalar (which promotes it to
 float32 in JAX), the port upcasts explicitly at the same point.
 
 Decode writes the new K/V into the caller's cache tensors in place
-(JAX's ``.at[].set`` makes a copy) and returns them.
+(JAX's ``.at[].set`` makes a copy) and returns them; :func:`write_slots`
+also writes a DTensor cache, however it is sharded. Under
+``cfg.serve_seq_parallel`` the prefill gathers K/V over the ``model``
+axis (``distributed/constraints.py``; an identity with no mesh).
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.distributed.constraints import is_dtensor, maybe_shard
+from repro_torch.models.layers import (apply_rope, contiguous_stride,
+                                       rms_norm, token_einsum)
 
 NEG_INF = -1e30
 
@@ -42,9 +47,9 @@ def gqa_params(draw, cfg) -> dict:
 
 
 def _project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype))
+    q = token_einsum("btd,dhk->bthk", x, p["wq"].to(x.dtype))
+    k = token_einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype))
+    v = token_einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -139,6 +144,58 @@ def _sdpa(q, k, v, mask):
     return _sdpa_dense(q, k, v, mask)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    rank's local tensor must match the DTensor's (contiguous) layout."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def on_shards(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``core(q, k, v, t0, b0)`` -> [B, T, H, dh]: the attention core on
+    whole tensors (``t0 = b0 = 0``) or, for DTensors, on each rank's own
+    shard, where the work is independent: batch and KV-head-group shards
+    of q, k and v alike, and a sequence shard of q (its first position
+    ``t0``, its first row ``b0``) against whole keys. Any other layout is
+    gathered first. The local core is plain PyTorch (no per-op DTensor
+    dispatch), and its output is a DTensor laid out as q."""
+    if not is_dtensor(q):
+        return core(q, k, v, 0, 0)
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.distributed.sharding import shard_box
+    mesh = q.device_mesh
+    qp, kp = [], []
+    for i, pl in enumerate(q.placements):
+        if pl.is_shard(0) or (pl.is_shard(2)
+                              and k.shape[2] % mesh.size(i) == 0):
+            qp.append(pl)
+            kp.append(pl)
+        elif pl.is_shard(1):   # sequence-parallel queries, whole keys
+            qp.append(pl)
+            kp.append(Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+
+    def laid(x, pl):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim)
+        return x.redistribute(mesh, pl)
+
+    q, k, v = laid(q, qp), laid(k, kp), laid(v, kp)
+    box = shard_box(q)
+    local = [_ContiguousGrad.apply(x.to_local()) for x in (q, k, v)]
+    out = core(*local, box[1][0], box[0][0]).contiguous()
+    return DTensor.from_local(out, mesh, qp, shape=q.shape,
+                              stride=contiguous_stride(q.shape))
+
+
 def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
               causal: bool = True, window: int | None = None,
               kv: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -150,33 +207,41 @@ def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     q, k, v = _project_qkv(cfg, p, x, positions)
     if kv is not None:
         k, v = kv
-        if k.shape[1] >= CHUNKED_SDPA_THRESHOLD:
-            out = _sdpa_chunked(q, k, v, causal=False, window=0)
-        else:
-            mask = torch.zeros((q.shape[1], k.shape[1]), dtype=torch.float32,
-                               device=x.device)
-            out = _sdpa(q, k, v, mask)
+        causal, w = False, 0
     else:
         w = cfg.sliding_window if window is None else window
+
+    def core(q, k, v, t0, b0):
         if k.shape[1] >= CHUNKED_SDPA_THRESHOLD:
-            out = _sdpa_chunked(q, k, v, causal=causal, window=w)
-        else:
-            out = _sdpa(q, k, v, _mask(q.shape[1], k.shape[1], causal, w,
-                                       device=x.device))
-    return torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
+            return _sdpa_chunked(q, k, v, causal=causal, window=w,
+                                 q_offset=t0)
+        return _sdpa(q, k, v, _mask(q.shape[1], k.shape[1], causal, w,
+                                    q_offset=t0, device=q.device))
+
+    out = on_shards(core, q, k, v)
+    return token_einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
 
 
 def attention_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                       window: int | None = None):
     """Returns (out, (k_cache, v_cache)) for serving prefill."""
     q, k, v = _project_qkv(cfg, p, x, positions)
+    if cfg.serve_seq_parallel:
+        # SP serving: q stays sequence-sharded; K/V gather across the
+        # model axis (the one collective of the scheme).
+        k = maybe_shard(k, ("pod", "data"), None, None, None)
+        v = maybe_shard(v, ("pod", "data"), None, None, None)
     w = cfg.sliding_window if window is None else window
-    if k.shape[1] >= CHUNKED_SDPA_THRESHOLD:
-        out = _sdpa_chunked(q, k, v, causal=True, window=w)
-    else:
-        out = _sdpa(q, k, v, _mask(q.shape[1], k.shape[1], True, w,
-                                   device=x.device))
-    return torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype)), (k, v)
+
+    def core(q, k, v, t0, b0):
+        if k.shape[1] >= CHUNKED_SDPA_THRESHOLD:
+            return _sdpa_chunked(q, k, v, causal=True, window=w,
+                                 q_offset=t0)
+        return _sdpa(q, k, v, _mask(q.shape[1], k.shape[1], True, w,
+                                    q_offset=t0, device=q.device))
+
+    out = on_shards(core, q, k, v)
+    return token_einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype)), (k, v)
 
 
 def ring_mask(pos: torch.Tensor, c: int, window: int = 0) -> torch.Tensor:
@@ -190,6 +255,40 @@ def ring_mask(pos: torch.Tensor, c: int, window: int = 0) -> torch.Tensor:
     return ok
 
 
+def write_slots(cache: torch.Tensor, idx: torch.Tensor,
+                value: torch.Tensor, rows: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """``cache[b, idx[b]] = value[b]`` for every row ``b``, in place
+    (cache ``[B, C, ...]``, idx ``[B]``, value ``[B, ...]``; ``rows``, the
+    plain path's ``arange(B)``, may be passed to share it between
+    caches); returns ``cache``. A DTensor cache (in-place indexing cannot
+    change its layout) is written on each rank's own shard: the rows and
+    ring slots it holds, from the full ``idx`` and ``value``."""
+    if not is_dtensor(cache):
+        if rows is None:
+            rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, idx] = value.to(cache.dtype)
+        return cache
+    from repro_torch.distributed.sharding import shard_box
+
+    def full(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    local = cache.to_local()
+    box = shard_box(cache)
+    (b0, nb), (c0, nc) = box[0], box[1]
+    if nb == 0 or nc == 0:
+        return cache
+    gi = full(idx)[b0:b0 + nb].to(local.device)
+    v = full(value).to(local.device, cache.dtype)[b0:b0 + nb]
+    v = v[(slice(None),) + tuple(slice(s, s + n) for s, n in box[2:])]
+    keep = ((gi >= c0) & (gi < c0 + nc)).view(-1, *[1] * (v.ndim - 1))
+    rows = torch.arange(nb, device=local.device)
+    slot = (gi - c0).clamp(0, nc - 1)
+    local[rows, slot] = torch.where(keep, v, local[rows, slot])
+    return cache
+
+
 def attention_decode(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      window: int | None = None):
@@ -197,25 +296,30 @@ def attention_decode(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
     cache_k/v: [B, C, Hkv, dh], ring-buffered (C = full seq for global
     layers, C = window for SWA layers), written in place. Returns
     (out [B,1,D], cache_k, cache_v)."""
-    b = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, pos[:, None])
     c = cache_k.shape[1]
     idx = pos % c
-    rows = torch.arange(b, device=x.device)
-    cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
+    sharded = is_dtensor(cache_k)
+    rows = None if sharded else torch.arange(x.shape[0], device=x.device)
+    write_slots(cache_k, idx, k[:, 0], rows)
+    write_slots(cache_v, idx, v[:, 0], rows)
     w = cfg.sliding_window if window is None else window
-    mask = torch.where(ring_mask(pos, c, w), 0.0, NEG_INF).to(
-        torch.float32)[:, None, None, None, :]        # b h g t s
-    hkv = cache_k.shape[2]
-    g = cfg.n_heads // hkv
-    dh = cfg.resolved_head_dim
-    qr = q.reshape(b, 1, hkv, g, dh)
-    logits = torch.einsum("bthgk,bshk->bhgts", qr,
-                          cache_k).float() / np.sqrt(dh)
-    logits = logits + mask
-    probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
-    out = torch.einsum("bhgts,bshk->bthgk", probs, cache_v).reshape(
-        b, 1, cfg.n_heads, dh)
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
+    whole_pos = pos.full_tensor() if is_dtensor(pos) else pos
+
+    def core(q, cache_k, cache_v, t0, b0):
+        b, _, h, dh = q.shape
+        hkv = cache_k.shape[2]
+        mask = torch.where(ring_mask(whole_pos[b0:b0 + b].to(q.device), c,
+                                     w), 0.0, NEG_INF).to(
+            torch.float32)[:, None, None, None, :]        # b h g t s
+        qr = q.reshape(b, 1, hkv, h // hkv, dh)
+        logits = torch.einsum("bthgk,bshk->bhgts", qr,
+                              cache_k).float() / np.sqrt(dh)
+        logits = logits + mask
+        probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
+        return torch.einsum("bhgts,bshk->bthgk", probs, cache_v).reshape(
+            b, 1, h, dh)
+
+    out = on_shards(core, q, cache_k, cache_v)
+    out = token_einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
     return out, cache_k, cache_v

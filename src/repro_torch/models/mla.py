@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.attention import ring_mask
+from repro_torch.distributed.constraints import is_dtensor
+from repro_torch.models.attention import ring_mask, write_slots
 from repro_torch.models.layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -140,15 +141,15 @@ def mla_decode(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
 
     absorbed=True: scores and values against the latent directly;
     absorbed=False: decompress all K/V each step (the naive baseline)."""
-    b = x.shape[0]
     s = cache_c.shape[1]
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope = _q_proj(cfg, p, x, pos[:, None])   # [B,1,H,*]
     c_kv, k_rope = _kv_latent(cfg, p, x, pos[:, None])
     idx = pos % s
-    rows = torch.arange(b, device=x.device)
-    cache_c[rows, idx] = c_kv[:, 0].to(cache_c.dtype)
-    cache_kr[rows, idx] = k_rope[:, 0].to(cache_kr.dtype)
+    rows = (None if is_dtensor(cache_c)
+            else torch.arange(x.shape[0], device=x.device))
+    write_slots(cache_c, idx, c_kv[:, 0], rows)
+    write_slots(cache_kr, idx, k_rope[:, 0], rows)
     mask = torch.where(ring_mask(pos, s), 0.0, NEG_INF).to(
         torch.float32)[:, None, :]                       # [B,1,S]
     scale = 1.0 / np.sqrt(dn + dr)

@@ -15,7 +15,11 @@ covers all 10 configs of ``repro_torch.configs``:
 Parameters are float32 masters cast to ``cfg.dtype`` where the reference
 casts them. Everything computes on the device its parameters lie on.
 Decode writes attention caches in place (the reference builds new
-arrays) and returns the cache tree.
+arrays) and returns the cache tree. The same code runs on DTensors
+across a mesh (``launch/steps.py`` ``Cell.run``): the sharding
+constraints of ``distributed/constraints.py`` act where the reference's
+do, including the sequence-parallel serving branches
+(``cfg.serve_seq_parallel``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.constraints import (gather_layer_params,
-                                                 maybe_shard)
+                                                 is_dtensor, maybe_shard)
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -406,11 +410,15 @@ def _decode_layer(cfg, lp: Params, moe_layer: bool, c: dict, x, pos,
     return x, c
 
 
+def _storage_ptr(t: torch.Tensor) -> int:
+    return (t.to_local() if is_dtensor(t) else t).data_ptr()
+
+
 def _store_layer(stack: dict, j: int, c: dict) -> None:
     """Write layer ``j``'s new cache into the stacked cache (in place; the
     attention leaves already are views of it)."""
     def put(dst, src):
-        if src.data_ptr() != dst[j].data_ptr():
+        if _storage_ptr(src) != _storage_ptr(dst[j]):
             dst[j].copy_(src)
     tree_map(put, stack, c)
 
@@ -471,8 +479,8 @@ def _prefill_layer(cfg, lp: Params, moe_layer: bool, x, positions, window,
         x = x + m
     elif cfg.attn_kind == "mla":
         a, (ckv, kr) = mla_mod.mla_prefill(cfg, lp["attn"], h, positions)
-        c["c_kv"][:, :t] = ckv
-        c["k_rope"][:, :t] = kr
+        c["c_kv"] = _ring_cache(c["c_kv"], ckv, t)
+        c["k_rope"] = _ring_cache(c["k_rope"], kr, t)
         x = x + a
     else:
         a, (k, v) = attn.attention_prefill(cfg, lp["attn"], h, positions,
@@ -502,6 +510,12 @@ def prefill(cfg, params: Params, batch: dict, max_len: int):
     if cfg.frontend == "vision" and "patches" in batch:
         x = torch.cat([batch["patches"].to(dtype), x], dim=1)
     b, t = x.shape[0], x.shape[1]
+    sp = cfg.serve_seq_parallel and t % 16 == 0
+    if sp:
+        # Small-model serving: weights replicated, sequence sharded over
+        # the model axis — elementwise/FFN/projection work divides over it
+        # with no collective; only attention K/V gather per layer.
+        x = maybe_shard(x, ("pod", "data"), "model", None)
     positions = torch.arange(t, device=x.device).expand(b, t)
     windows = _window_schedule(cfg)
     if uniform_serving(cfg):
@@ -529,22 +543,41 @@ def prefill(cfg, params: Params, batch: dict, max_len: int):
             x, c = _prefill_layer(cfg, lp, moe_layer, x, positions,
                                   int(windows[i]), max_len, memory=memory,
                                   xp=xp)
+            if sp:  # re-pin SP after gathers (SSM scans etc.)
+                x = maybe_shard(x, ("pod", "data"), "model", None)
             caches.append(c)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(x[:, -1], params["embed"]), caches, memory
 
 
+def _ring_cache(buf: torch.Tensor, val: torch.Tensor, t: int
+                ) -> torch.Tensor:
+    """The ring cache ``buf`` ([B, C, ...], fresh zeros) holding the ``t``
+    prefill positions of ``val`` ([B, t, ...]): position ``p`` at slot
+    ``p mod C``, the last ``C`` positions when ``t > C``, zeros past
+    ``t``. A plain ``val`` is written into ``buf`` in place; a DTensor
+    ``val`` gives a new cache built from it, of its own layout."""
+    size = buf.shape[1]
+    if not is_dtensor(val):
+        if size >= t:
+            buf[:, :t] = val
+        else:
+            pos = torch.arange(t - size, t, device=val.device) % size
+            buf[:, pos] = val[:, t - size:]
+        return buf
+    if size == t:
+        return val.to(buf.dtype)
+    if size > t:
+        tail = val.new_zeros((val.shape[0], size - t) + tuple(val.shape[2:]))
+        return torch.cat([val, tail], dim=1).to(buf.dtype)
+    return torch.roll(val[:, t - size:], (t - size) % size,
+                      dims=1).to(buf.dtype)
+
+
 def _write_kv(c: dict, k: torch.Tensor, v: torch.Tensor, t: int) -> None:
-    """Write prefill K/V into the (possibly window-sized) ring cache."""
-    size = c["k"].shape[1]
-    if size >= t:
-        c["k"][:, :t] = k
-        c["v"][:, :t] = v
-    else:
-        # keep the last `size` positions at their ring slots (p mod size)
-        pos = torch.arange(t - size, t, device=k.device) % size
-        c["k"][:, pos] = k[:, t - size:]
-        c["v"][:, pos] = v[:, t - size:]
+    """Prefill K/V as the (possibly window-sized) ring cache."""
+    c["k"] = _ring_cache(c["k"], k, t)
+    c["v"] = _ring_cache(c["v"], v, t)
 
 
 def _ssm_prefill_cache(cfg, lp: dict, h: torch.Tensor, cache: dict) -> dict:

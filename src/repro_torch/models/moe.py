@@ -14,6 +14,13 @@ The port's copy of ``repro.models.moe``:
      which also keeps the result deterministic on the card.
 
 Aux losses: switch-style load balance + router z-loss.
+
+The scatters start from ``new_zeros`` of a tensor of the dispatch and
+are out of place, so on a batch sharded as a DTensor (``launch/steps.py``
+``Cell.run``) they give DTensors laid out as DTensor propagates them
+(its in-place ``index_add_`` can relabel a layout without moving the
+data) and the dispatch integers are those of the whole batch; on plain
+tensors they are the same values.
 """
 
 from __future__ import annotations
@@ -70,22 +77,21 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     token_of = torch.arange(n, device=dev).repeat_interleave(k)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    # Counts by index_add_, not bincount: the same integers, but bincount
+    # Counts by index_add, not bincount: the same integers, but bincount
     # reads the maximum on the host first (a sync on a card) and has no
     # meta kernel, so the dry run could not trace the MoE archs.
-    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
-        0, sorted_e, torch.ones_like(sorted_e))
+    counts = sorted_e.new_zeros(e).index_add(0, sorted_e,
+                                             torch.ones_like(sorted_e))
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(n * k, device=dev) - starts[sorted_e]
-    rank = torch.zeros(n * k, dtype=torch.int64, device=dev)
-    rank[order] = rank_sorted
+    rank = rank_sorted.new_zeros(n * k).scatter(0, order, rank_sorted)
     ok = rank < cap
     # Dropped entries go to slot 0 with a zero contribution.
     slot = torch.where(ok, flat_e * cap + rank, 0)
     okf = ok.to(x.dtype)[:, None]
 
-    buf = torch.zeros((e * cap, d), dtype=x.dtype, device=dev)
-    buf.index_add_(0, slot, xf[token_of] * okf)
+    buf = xf.new_zeros((e * cap, d)).index_add(0, slot,
+                                               xf[token_of] * okf)
     buf = maybe_shard(buf, "model", None)
     h = maybe_shard(buf.reshape(e, cap, d), "model", None, None)
     g = torch.einsum("ecd,edf->ecf", h, p["w_gate"].to(x.dtype))
@@ -106,9 +112,13 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
         su = torch.einsum("nd,df->nf", xf, sp["w_up"].to(x.dtype))
         y = y + torch.einsum("nf,fd->nd", F.silu(sg) * su,
                              sp["w_down"].to(x.dtype))
+        # Pinned again (an identity with no mesh): DTensor may leave the
+        # sum's tokens split over the model axis as well, a layout the
+        # [B, T, D] reshape below cannot take.
+        y = maybe_shard(y, ("pod", "data"), None)
 
     me = probs.mean(0)
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+    ce = probs.new_zeros(e).index_add(
         0, flat_e, torch.ones(n * k, dtype=torch.float32, device=dev)) / (n * k)
     aux = {
         "load_balance_loss": e * torch.sum(me * ce),

@@ -6,7 +6,9 @@ The port's copy of ``repro.train.trainer``. Autograd takes the backward
 pass; microbatches accumulate in a Python loop in the order of the
 reference's ``lax.scan``; params and optimizer state are updated in place
 (the reference's donated buffers). Batches come from the data pipeline as
-host NumPy and reach the device through pinned memory.
+host NumPy and reach the device through pinned memory. On DTensor
+params (a cell run over a mesh, ``launch/steps.py``) each gradient is
+laid out as its parameter before clipping and the update.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, TrainConfig
+from repro_torch.distributed.constraints import layout_like
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.models.tree import tree_leaves, tree_map
 from repro_torch.train import grad_compress
@@ -71,14 +74,13 @@ def loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch: dict
         loss, metrics = loss_fn(cfg, params, b, z_loss=tcfg.z_loss,
                                 moe_aux=tcfg.moe_aux_loss)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        gs = [torch.zeros_like(p) if g is None else g
+        gs = [torch.zeros_like(p) if g is None else layout_like(g, p)
               for p, g in zip(leaves, gs)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
 
     mb = tcfg.microbatches
     if mb > 1:
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves]
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         lsum = 0.0
         for i in range(mb):
             micro = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]

@@ -610,8 +610,10 @@ def test_serve_seq_parallel_changes_no_number(monkeypatch):
 def test_dry_run_record(monkeypatch, tmp_path, sname, multi_pod):
     """A smoke-patched cell on a production mesh: its argument bytes are
     the sum over ``local_shape``, its FLOPs those of the trace over
-    ``n_devices``, and the record renders through ``dryrun_table`` and
-    ``roofline.analyze_record``."""
+    ``n_devices``, its collective census (a DTensor trace over the mesh)
+    in the reference's schema with every layer traced (no loop-body
+    bucket), and the record renders through ``dryrun_table`` and
+    ``roofline.analyze_record`` (a collective term on the train cell)."""
     _smoke(monkeypatch, "qwen3-1.7b", dtype=None)
     rec = T.dryrun.run_cell("qwen3-1.7b", sname, multi_pod)
     mesh = T.mesh.make_production_mesh(multi_pod=multi_pod)
@@ -625,19 +627,57 @@ def test_dry_run_record(monkeypatch, tmp_path, sname, multi_pod):
             * x.element_size()
     assert rec["memory"]["argument_size_in_bytes"] == want > 0
     assert rec["flops"] > 0 and rec["lower_compile_s"] >= 0
-    for k in ("bytes_accessed", "transcendentals", "collectives",
-              "hlo_bytes"):
+    for k in ("bytes_accessed", "transcendentals", "hlo_bytes"):
         assert rec[k] is None
     assert rec["memory"]["temp_size_in_bytes"] is None
+    coll = rec["collectives"]
+    assert coll is not None and coll["region_weighted"] == 0
+    kinds = {k: v for k, v in coll.items() if k in T.dryrun.COLLECTIVE_FACTOR}
+    assert kinds and coll["total_weighted"] == sum(
+        T.dryrun.COLLECTIVE_FACTOR[k] * v for k, v in kinds.items())
     rec["status"] = "ok"
     path = tmp_path / "dry.jsonl"
     path.write_text(json.dumps(rec) + "\n")
     from repro_torch.launch import dryrun_table
     dryrun_table.main([str(path)])
     p = T.roofline.analyze_record(rec)
-    assert p.collective_s == 0.0 and p.compute_s > 0 and p.memory_s > 0
+    assert p.compute_s > 0 and p.memory_s > 0
+    assert p.collective_s == coll["total_weighted"] / T.roofline.ICI_BW
+    if sname == "train_4k":
+        assert p.collective_s > 0
     assert p.hlo_flops_raw == rec["flops"]
     assert "qwen3-1.7b" in T.roofline.to_markdown([p])
+
+
+def test_census_counts_the_all_reduce_of_sharded_contractions(monkeypatch):
+    """A float32 smoke train cell (32 x 16) on the 16x16 mesh over the
+    ``fake`` backend: each layer's attention output projection contracts
+    heads sharded over ``model``, a partial sum DTensor all-reduces; the
+    census counts at least one [1, 32, d_model] float32 sum a layer."""
+    _, tcfg = _smoke(monkeypatch, "qwen3-1.7b")
+    mesh = T.mesh.make_production_mesh()
+    cell = T.steps.build_cell("qwen3-1.7b",
+                              T.base.ShapeConfig("train_tiny", "train", 32,
+                                                 16), mesh)
+    coll = T.dryrun.collective_census(cell, mesh)
+    assert coll["region_weighted"] == 0.0
+    assert coll["all-reduce"] >= tcfg.n_layers * 32 * tcfg.d_model * 4
+    import torch.distributed as dist
+    assert not dist.is_initialized()       # the fake group is torn down
+
+
+def test_dry_run_failing_census_keeps_the_cell(monkeypatch):
+    """A DTensor trace that fails leaves ``collectives`` null, names the
+    failing op, and keeps the cell ``ok``."""
+    def broken(cell, mesh):
+        raise RuntimeError("Sharding propagation failed for aten.view")
+
+    monkeypatch.setattr(T.dryrun, "collective_census", broken)
+    _smoke(monkeypatch, "qwen3-1.7b", dtype=None)
+    rec = T.dryrun.run_cell("qwen3-1.7b", "decode_32k", False)
+    assert rec["collectives"] is None and rec["flops"] > 0
+    assert "aten.view" in rec["collectives_error"]
+    assert T.roofline.analyze_record(rec).collective_s == 0.0
 
 
 def test_dry_run_failing_cell_records_its_error(monkeypatch, tmp_path,
