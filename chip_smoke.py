@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only lm_serve|lm_cells_sharded
+    python3 chip_smoke.py --only lm_serve|lm_cells_sharded|lm_subquadratic
 
 Run from the root of a checkout on a host with one CUDA card and the CUDA
 toolkit (``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``). It
@@ -175,7 +175,15 @@ into ``build/repro_torch/`` and then, failing on the first error:
     ``train_4k`` gradients through K1/K2 bit-identical to an eager CPU
     device; across cards, two planted faults (a gradient's and a
     forward's sum over ranks skipped) must fail those checks;
-24. prints one JSON line of per-kernel results, the card's name and power
+24. the sub-quadratic family (``lm_subquadratic``), mamba2-130m and
+    hymba-1.5b at full width: ``ServeEngine`` three ways (equal streams,
+    K1/K2 each tick, tok/s, TTFT, the profile), float32 card against CPU,
+    a 2 x 2048-token prefill whose every SSM state is held against the
+    per-token recurrence (1e-4 of its largest magnitude), the
+    ``train_4k``, ``prefill_32k``, ``decode_32k`` and ``long_500k`` cells
+    on one card (batches cut to ``SUBQ_CUTS``), the launcher, and the
+    ``serve_llm`` example;
+25. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -186,6 +194,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import importlib
 import itertools
 import operator
@@ -1018,13 +1027,17 @@ def serve_run(eng, Request, prompts, build, max_new: int) -> dict:
     }
 
 
-def profile_ticks(step, n_ticks: int) -> dict | None:
+def profile_ticks(step, n_ticks: int, wall_ms: float | None = None
+                  ) -> dict | None:
     """``n_ticks`` steady calls of ``step`` (a serve tick, a train step)
-    timed on the host clock, then ``n_ticks`` more under
-    ``torch.profiler`` (CPU and CUDA activities): the device time summed
+    timed on the host clock (or ``wall_ms``, a warm call's wall the
+    caller measured), then ``n_ticks`` more under ``torch.profiler`` (the
+    CUDA activity alone: the device events are the same with the CPU's,
+    and their summary takes half the host time): the device time summed
     over the device-side events (kernels, copies, memsets; one stream, so
-    they do not overlap) and their count, per call; the idle share is 1 -
-    device time / the unprofiled call's wall. Also the profiled wall and
+    they do not overlap)
+    and their count, per call; the idle share is 1 - device time / the
+    unprofiled call's wall. Also the profiled wall and
     the five most frequent device events and the five longest (name,
     count and ms per call), and the device time per call by kind of
     kernel (``nccl`` collectives; float32 GEMMs, which run outside the
@@ -1034,13 +1047,13 @@ def profile_ticks(step, n_ticks: int) -> dict | None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_ticks):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if wall_ms is None:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_ticks):
             step()
@@ -1134,18 +1147,116 @@ def lm_parity(cfg, dev_params, cpu_params, batch, device, steps: int,
     return errs, same
 
 
+def serve_three_ways(cfg, params, build, dev, tag: str) -> dict:
+    """``cfg`` with ``params`` on ``dev`` through ``ServeEngine`` (max_batch
+    4, max_len 256, eos -1: the launcher's defaults): 8 requests of
+    16-token prompts from ``default_rng(0)``, 16 new tokens each, three
+    ways (PuM stop predicate sync, ``async_stop``, host predicate); the
+    streams are identical, every decoding tick of the PuM runs replays
+    the captured predicate (one K2 launch, the same K1 launches each
+    tick, no ``flush.record`` span inside a tick). On the card, 8 steady
+    ticks are profiled. Lines are printed under ``tag``; returns the runs
+    (``serve``), the profile and the sync run's launches."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, ServeEngine
+    on_card = dev.type == "cuda"
+    prng = np.random.default_rng(0)
+    prompts = [prng.integers(0, cfg.vocab_size, 16, dtype=np.int32)
+               for _ in range(8)]
+    kw = dict(max_batch=4, max_len=256, eos_id=-1, device=dev,
+              telemetry=True)
+    warm = ServeEngine(cfg, params=params, **kw)
+    serve_run(warm, Request, prompts[:1], build, max_new=2)
+    warm.close()
+    runs = {}
+    for label, mode in (("sync", {}), ("async_stop", {"async_stop": True}),
+                        ("host", {"pum_bulk": False})):
+        eng = ServeEngine(cfg, params=params, **kw, **mode)
+        runs[label] = r = serve_run(eng, Request, prompts, build,
+                                    max_new=16)
+        eng.close()
+        check(r["tokens"] == 128 and all(len(s) == 16
+                                         for _, s in r["streams"]),
+              f"{tag} {label}: {r['tokens']} tokens")
+        n_dec = len(r["decode_ms"])
+        if label != "host":
+            check(r["records_in_ticks"] == 0,
+                  f"{tag} {label}: {r['records_in_ticks']} flush.record "
+                  f"spans inside ticks (the predicate re-recorded)")
+            check(r["replays"] == n_dec,
+                  f"{tag} {label}: {r['replays']} replays for {n_dec} "
+                  f"decoding ticks")
+        if on_card and label == "sync":
+            decoding = [k for k in r["ticks"] if k["run_program_cuda"]]
+            check(len(decoding) == n_dec and all(
+                k["run_program_cuda"] == 1
+                and k["bit_transpose32"] == decoding[0]["bit_transpose32"]
+                > 0 for k in decoding),
+                  f"serve sync: K1/K2 launches per tick {r['ticks']}")
+        if on_card and label != "host":
+            check(r["launches"]["run_program_cuda"] == n_dec
+                  and r["launches"]["bit_transpose32"] > 0,
+                  f"{tag} {label}: launches {r['launches']} over {n_dec} "
+                  f"decoding ticks")
+        if label == "host":
+            check(all(v == 0 for v in r["launches"].values()),
+                  f"{tag} host: kernels launched {r['launches']}")
+        per_tick = {k: v / max(n_dec, 1) for k, v in r["launches"].items()}
+        print(f"{tag} {label}: {r['tokens']} tokens in {r['wall_s']:.3f} s "
+              f"= {r['tok_s']:.1f} tok/s, TTFT mean "
+              f"{r['ttft_mean_ms']:.1f} ms max {r['ttft_max_ms']:.1f} ms; "
+              f"{n_dec} decoding ticks, decode step "
+              f"{statistics.mean(r['decode_ms']):.3f} ms/tick (median "
+              f"{statistics.median(r['decode_ms']):.3f}), stop predicate "
+              f"{statistics.mean(r['stop_ms']):.3f} ms/tick (median "
+              f"{statistics.median(r['stop_ms']):.3f}), admission "
+              f"{sum(r['admit_ms']) / 8:.3f} ms/request; K1/K2 launches "
+              f"{r['launches']} ({per_tick['bit_transpose32']:.2f}/"
+              f"{per_tick['run_program_cuda']:.2f} per decoding tick), "
+              f"flush.record spans in ticks {r['records_in_ticks']}, "
+              f"replays {r['replays']}, pum.stats.latency_ns "
+              f"{r['pum_latency_ns']}")
+    check(runs["sync"]["streams"] == runs["async_stop"]["streams"]
+          == runs["host"]["streams"],
+          f"{tag}: the three modes gave different token streams")
+    print(f"{tag}: token streams identical across sync, async_stop and "
+          "the host predicate")
+    out = {}
+    out["serve"] = {k: {kk: vv for kk, vv in v.items()
+                        if kk not in ("streams", "ticks")}
+                    for k, v in runs.items()}
+    if on_card:
+        # Device busy and idle share over 8 + 8 steady ticks (4 slots
+        # busy, no admission): the decode step and the predicate's replay.
+        eng = ServeEngine(cfg, params=params, **kw)
+        for rid, p in enumerate(prompts[:4]):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=24))
+        eng.tick()
+        prof = profile_ticks(eng.tick, 8)
+        eng.run_until_drained()
+        eng.close()
+        out["serve_profile"] = prof
+        print(f"{tag} sync, 8 steady ticks under torch.profiler: " + (
+            "device time not measured (the profiler saw no device events)"
+            if prof is None else
+            f"{prof['wall_ms']:.3f} ms/tick wall unprofiled "
+            f"({prof['profiled_wall_ms']:.3f} profiled), device busy "
+            f"{prof['device_ms']:.3f} ms/tick, idle share "
+            f"{prof['idle_share']:.3f}, {prof['device_ops']:.1f} device "
+            f"kernels and copies per tick; most frequent (name, per tick, "
+            f"ms per tick): " + "; ".join(
+                f"{k} {n:.1f} {ms:.3f}" for k, n, ms in prof["top_ops"])))
+    out["serve_launches"] = runs["sync"]["launches"]
+    return out
+
+
 def lm_serve(device: str, build, stop_program, seed: int) -> dict:
     """The LM serve phases on ``device`` (``"cuda"`` on the card; on the
     CPU they rehearse at the arch's smoke config):
 
     a. qwen1.5-0.5b at full width in bfloat16 (``init_params`` from a
        ``torch.Generator`` seeded 0 on the device) through ``ServeEngine``
-       (max_batch 4, max_len 256, eos -1: the launcher's defaults): 8
-       requests of 16-token prompts from ``default_rng(0)``, 16 new tokens
-       each, run three ways (PuM stop predicate sync, ``async_stop``, host
-       predicate); the streams are identical, every decoding tick of the
-       PuM runs replays the captured predicate (one K2 launch, the same K1
-       launches each tick, no ``flush.record`` span inside a tick);
+       three ways (:func:`serve_three_ways`);
     b. the same parameters in float32 on the device and on the CPU: a
        16-token prefill and 4 decode steps, logits within
        ``SERVE_F32_TOL`` and the greedy tokens equal;
@@ -1167,7 +1278,6 @@ def lm_serve(device: str, build, stop_program, seed: int) -> dict:
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model as lm
     from repro_torch.models.tree import tree_leaves, tree_map
-    from repro_torch.serve.engine import Request, ServeEngine
     on_card = device != "cpu"
     smoke = not on_card
     dev = torch.device(device)
@@ -1194,92 +1304,7 @@ def lm_serve(device: str, build, stop_program, seed: int) -> dict:
           f"{n_params} parameters ({n_params * 4 / 2**30:.2f} GiB float32 "
           f"masters) drawn on {device} in {init_s:.2f} s; compute "
           f"{cfg.dtype}")
-    prng = np.random.default_rng(0)
-    prompts = [prng.integers(0, cfg.vocab_size, 16, dtype=np.int32)
-               for _ in range(8)]
-    kw = dict(max_batch=4, max_len=256, eos_id=-1, device=dev,
-              telemetry=True)
-    warm = ServeEngine(cfg, params=params, **kw)
-    serve_run(warm, Request, prompts[:1], build, max_new=2)
-    warm.close()
-    runs = {}
-    for label, mode in (("sync", {}), ("async_stop", {"async_stop": True}),
-                        ("host", {"pum_bulk": False})):
-        eng = ServeEngine(cfg, params=params, **kw, **mode)
-        runs[label] = r = serve_run(eng, Request, prompts, build,
-                                    max_new=16)
-        eng.close()
-        check(r["tokens"] == 128 and all(len(s) == 16
-                                         for _, s in r["streams"]),
-              f"serve {label}: {r['tokens']} tokens")
-        n_dec = len(r["decode_ms"])
-        if label != "host":
-            check(r["records_in_ticks"] == 0,
-                  f"serve {label}: {r['records_in_ticks']} flush.record "
-                  f"spans inside ticks (the predicate re-recorded)")
-            check(r["replays"] == n_dec,
-                  f"serve {label}: {r['replays']} replays for {n_dec} "
-                  f"decoding ticks")
-        if on_card and label == "sync":
-            decoding = [k for k in r["ticks"] if k["run_program_cuda"]]
-            check(len(decoding) == n_dec and all(
-                k["run_program_cuda"] == 1
-                and k["bit_transpose32"] == decoding[0]["bit_transpose32"]
-                > 0 for k in decoding),
-                  f"serve sync: K1/K2 launches per tick {r['ticks']}")
-        if on_card and label != "host":
-            check(r["launches"]["run_program_cuda"] == n_dec
-                  and r["launches"]["bit_transpose32"] > 0,
-                  f"serve {label}: launches {r['launches']} over {n_dec} "
-                  f"decoding ticks")
-        if label == "host":
-            check(all(v == 0 for v in r["launches"].values()),
-                  f"serve host: kernels launched {r['launches']}")
-        per_tick = {k: v / max(n_dec, 1) for k, v in r["launches"].items()}
-        print(f"serve {label}: {r['tokens']} tokens in {r['wall_s']:.3f} s "
-              f"= {r['tok_s']:.1f} tok/s, TTFT mean "
-              f"{r['ttft_mean_ms']:.1f} ms max {r['ttft_max_ms']:.1f} ms; "
-              f"{n_dec} decoding ticks, decode step "
-              f"{statistics.mean(r['decode_ms']):.3f} ms/tick (median "
-              f"{statistics.median(r['decode_ms']):.3f}), stop predicate "
-              f"{statistics.mean(r['stop_ms']):.3f} ms/tick (median "
-              f"{statistics.median(r['stop_ms']):.3f}), admission "
-              f"{sum(r['admit_ms']) / 8:.3f} ms/request; K1/K2 launches "
-              f"{r['launches']} ({per_tick['bit_transpose32']:.2f}/"
-              f"{per_tick['run_program_cuda']:.2f} per decoding tick), "
-              f"flush.record spans in ticks {r['records_in_ticks']}, "
-              f"replays {r['replays']}, pum.stats.latency_ns "
-              f"{r['pum_latency_ns']}")
-    check(runs["sync"]["streams"] == runs["async_stop"]["streams"]
-          == runs["host"]["streams"],
-          "serve: the three modes gave different token streams")
-    print("serve: token streams identical across sync, async_stop and "
-          "the host predicate")
-    out["serve"] = {k: {kk: vv for kk, vv in v.items()
-                        if kk not in ("streams", "ticks")}
-                    for k, v in runs.items()}
-    if on_card:
-        # Device busy and idle share over 8 + 8 steady ticks (4 slots
-        # busy, no admission): the decode step and the predicate's replay.
-        eng = ServeEngine(cfg, params=params, **kw)
-        for rid, p in enumerate(prompts[:4]):
-            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=24))
-        eng.tick()
-        prof = profile_ticks(eng.tick, 8)
-        eng.run_until_drained()
-        eng.close()
-        out["serve_profile"] = prof
-        print("serve sync, 8 steady ticks under torch.profiler: " + (
-            "device time not measured (the profiler saw no device events)"
-            if prof is None else
-            f"{prof['wall_ms']:.3f} ms/tick wall unprofiled "
-            f"({prof['profiled_wall_ms']:.3f} profiled), device busy "
-            f"{prof['device_ms']:.3f} ms/tick, idle share "
-            f"{prof['idle_share']:.3f}, {prof['device_ops']:.1f} device "
-            f"kernels and copies per tick; most frequent (name, per tick, "
-            f"ms per tick): " + "; ".join(
-                f"{k} {n:.1f} {ms:.3f}" for k, n, ms in prof["top_ops"])))
-    out["serve_launches"] = runs["sync"]["launches"]
+    out.update(serve_three_ways(cfg, params, build, dev, "serve"))
 
     # -- b. full width float32, device against CPU ---------------------- #
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1978,18 +2003,18 @@ def shard_words_run(device: str, build, seed: int) -> dict:
     return out
 
 
-def lm_cells_run(device: str, seed: int) -> dict:
-    """qwen1.5-0.5b's ``train_4k``, ``prefill_32k`` and ``decode_32k``
-    cells through ``steps.build_cell(..., make_test_mesh(1))`` at full
-    width (24 layers, d 1024, padded vocab 153,600; weights from a
-    ``torch.Generator`` seeded 0), each shape's sequence length kept and
-    its global batch cut to :data:`LAUNCH_CUTS`: the tensors given to the
-    cell are the dry run's ``meta`` arguments made real, their bytes equal
-    to its ``argument_size_in_bytes`` on the 1x1 mesh, and the outputs
-    finite; prints each cell's warm wall (ending in a read-back), peak
-    memory, the dry run's counted FLOPs at the cut shape and the
-    roofline's one-card bound. Then the analytic dry run of the three
-    cells on the 16x16 production mesh (host only)."""
+def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
+    """``arch``'s cells through ``steps.build_cell(..., make_test_mesh(1))``
+    at full width (weights from a ``torch.Generator`` seeded 0), each
+    shape's sequence length kept and its global batch cut as ``cuts``
+    says ((shape, batch) pairs): the tensors given to the cell are the dry
+    run's ``meta`` arguments made real, their bytes equal to its
+    ``argument_size_in_bytes`` on the 1x1 mesh, and the outputs finite;
+    prints each cell's cold and warm wall (each ending in a read-back),
+    peak memory, the dry run's counted FLOPs at the cut shape, the
+    roofline's one-card bound and wall / bound, and on the card one
+    profiled call (device busy, idle share, device ops). On the CPU it
+    rehearses at the smoke config with sequences of 16."""
     import torch
     from repro_torch.config.base import (LM_SHAPES, ShapeConfig, get_config,
                                          get_smoke_config)
@@ -2004,19 +2029,18 @@ def lm_cells_run(device: str, seed: int) -> dict:
         if on_card:
             torch.cuda.synchronize(dev)
 
-    full_cfg = get_config(LAUNCH_ARCH)
-    cfg = full_cfg if on_card else get_smoke_config(LAUNCH_ARCH)
+    cfg = get_config(arch) if on_card else get_smoke_config(arch)
     # One card's 1x1 mesh: the cut cells run unsharded on it.
     mesh = make_test_mesh(1) if on_card else make_test_mesh(devices=[dev])
     real_get_config = steps.get_config
     if not on_card:  # rehearsal: the smoke config through the same builder
         steps.get_config = lambda arch: cfg
     try:
-        for name, cut in LAUNCH_CUTS:
+        for name, cut in cuts:
             g = LM_SHAPES[name]
             seq = g.seq_len if on_card else 16
             shape = ShapeConfig(name, g.kind, seq, cut)
-            cell = steps.build_cell(LAUNCH_ARCH, shape, mesh)
+            cell = steps.build_cell(arch, shape, mesh)
             rec = dryrun.trace_cell(cell, mesh)
             args = lm_cell_args(cell, cfg, dev, seed)
             metas, reals = tree_leaves(cell.args), tree_leaves(args)
@@ -2030,6 +2054,7 @@ def lm_cells_run(device: str, seed: int) -> dict:
                   f"{rec['memory']['argument_size_in_bytes']}")
             walls = []
             for _ in range(2):
+                res = None  # the cold call's outputs do not count at peak
                 if on_card:
                     torch.cuda.reset_peak_memory_stats(dev)
                 sync()
@@ -2043,21 +2068,23 @@ def lm_cells_run(device: str, seed: int) -> dict:
             check(all(bool(torch.isfinite(x).all()) for x in
                       host + tree_leaves(res) if x.is_floating_point()),
                   f"{name}: non-finite outputs")
-            bound = one_card_bound(roofline, LAUNCH_ARCH, name, cut)
+            bound = one_card_bound(roofline, arch, name, cut)
             size = "full width" if on_card else "smoke"
             print(f"{name} cut to batch {cut} x {seq} ({g.global_batch} "
-                  f"global), {LAUNCH_ARCH} {size}: {given:,} argument "
+                  f"global), {arch} {size}: {given:,} argument "
                   f"bytes on the card = the dry run's; "
                   f"outputs finite; wall {walls[0]:.3f} s cold, "
                   f"{walls[1]:.3f} s warm; peak memory "
                   f"{peak / 2**30:.2f} GiB; dry run "
                   f"{rec['flops'] / 1e12:.3f} TFLOP counted (trace {rec['lower_compile_s']} s); "
-                  f"one-card bound {bound['bound_s'] * 1e3:.2f} ms "
+                  f"one-card bound {bound['bound_s'] * 1e3:.2f} ms, wall / "
+                  f"bound {walls[1] / bound['bound_s']:.1f} "
                   f"(compute {bound['compute_s'] * 1e3:.2f}, memory "
                   f"{bound['memory_s'] * 1e3:.2f}; analytic "
                   f"{bound['flops'] / 1e12:.3f} TFLOP)")
             if on_card:
-                prof = profile_ticks(lambda: cell.fn(*args), 1)
+                prof = profile_ticks(lambda: cell.fn(*args), 1,
+                                     wall_ms=walls[1] * 1e3)
                 check(prof is not None, f"{name}: the profiler saw no "
                       f"device events")
                 print(f"  {name} under torch.profiler (1 call): "
@@ -2073,11 +2100,23 @@ def lm_cells_run(device: str, seed: int) -> dict:
                          "peak_gib": peak / 2**30,
                          "dry_run_flops": rec["flops"],
                          "arg_bytes": given, **bound}
-            del cell, args, res, host
+            del cell, args, res, host, reals
             if on_card:
                 torch.cuda.empty_cache()
     finally:
         steps.get_config = real_get_config
+
+    return out
+
+
+def lm_cells_run(device: str, seed: int) -> dict:
+    """qwen1.5-0.5b's ``train_4k``, ``prefill_32k`` and ``decode_32k``
+    cells at full width (24 layers, d 1024, padded vocab 153,600), their
+    batches cut to :data:`LAUNCH_CUTS` (:func:`run_cells`); then the
+    analytic dry run of the three cells on the 16x16 production mesh
+    (host only)."""
+    from repro_torch.launch import dryrun, roofline
+    out = run_cells(LAUNCH_ARCH, LAUNCH_CUTS, device, seed)
 
     # the analytic dry run on 16x16 (host)
     t = time.perf_counter()
@@ -2607,14 +2646,196 @@ def one_bit_run(grads, dev, build) -> dict:
             "card_s": card_s, "cpu_s": cpu_s, "launches": launches}
 
 
-ALONE = ("lm_serve", "lm_cells_sharded")
+SUBQ_ARCHS = ("mamba2-130m", "hymba-1.5b")   # the sub-quadratic family
+# (shape, batch on one card) per arch: each shape's sequence length and
+# the model's depth are kept; only the global batch is cut, to what one
+# 80 GB card holds, except hymba-1.5b's prefill_32k: 2 sequences peak
+# at ~30 GiB, so 4 would fit, but a call of 2 takes ~36 s, so it runs 2
+# to keep the script inside its time limit (PERF.md section 4).
+SUBQ_CUTS = {
+    "mamba2-130m": (("train_4k", 16), ("prefill_32k", 16),
+                    ("decode_32k", 128), ("long_500k", 1)),
+    "hymba-1.5b": (("train_4k", 4), ("prefill_32k", 2),
+                   ("decode_32k", 128), ("long_500k", 1)),
+}
+SSM_STATE_TOKENS = 2048   # a prefill of several 256-token chunks
+SSM_STATE_TOL = 1e-4      # of the state's largest magnitude, float32
+
+
+def ssm_state_tap(ssm_mod, errs: list):
+    """``ssm.final_state`` (the prefill's closed form) that also runs the
+    per-token recurrence ``final_state_naive`` on the same inputs and
+    appends the largest difference, as a share of the recurrence's
+    largest magnitude, to ``errs``."""
+    closed = ssm_mod.final_state
+
+    def tapped(x, dt, a_log, b, state):
+        got = closed(x, dt, a_log, b, state)
+        want = ssm_mod.final_state_naive(x, dt, a_log, b, state)
+        errs.append(float((got - want).abs().max() / want.abs().max()))
+        return got
+    return tapped
+
+
+def lm_subquadratic(device: str, build, seed: int) -> dict:
+    """Phase 24 (``lm_subquadratic``) on ``device`` (``"cuda"`` on the
+    card; on the CPU it rehearses at each arch's smoke config): for
+    mamba2-130m and hymba-1.5b, :func:`subquadratic_arch`; then the
+    ``serve_llm`` example for mamba2-130m, as a user runs it."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.examples import serve_llm
+    if device != "cpu":
+        gc.collect()  # earlier phases' closed engines hold tensors in cycles
+        torch.cuda.empty_cache()
+        print(f"phase 24 starts with "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    out = {arch: subquadratic_arch(arch, device, build, seed)
+           for arch in SUBQ_ARCHS}
+    argv = ["--arch", "mamba2-130m", "--device", device]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        done = serve_llm.main(argv)
+    lines = buf.getvalue().splitlines()
+    check(len(done) == 6 and all(len(r.out_tokens) == 12 for r in done)
+          and lines[0].startswith("6 requests, 72 tokens in "),
+          f"serve_llm printed {lines}")
+    print(f"example (python -m repro_torch.examples.serve_llm "
+          f"{' '.join(argv)}): " + " | ".join(lines[:2]))
+    out["launches"] = {k: sum(out[a]["serve_launches"][k]
+                              for a in SUBQ_ARCHS) for k in K12}
+    return out
+
+
+def subquadratic_arch(arch: str, device: str, build, seed: int) -> dict:
+    """Phase 24 for one arch (its full config on the card):
+
+    a. bfloat16 through ``ServeEngine`` three ways
+       (:func:`serve_three_ways`: equal streams, K1/K2 each tick, the
+       profile), the parameter count equal to ``count_params``;
+    b. float32, the card against the CPU: prefill 2 x 16 tokens and 4
+       decode steps within ``SERVE_F32_TOL`` with equal greedy tokens;
+       then a prefill of 2 x ``SSM_STATE_TOKENS`` tokens and 4 decode
+       steps on the card, every layer's SSM state held against the
+       per-token recurrence within ``SSM_STATE_TOL``;
+    c. ``train_4k``, ``prefill_32k``, ``decode_32k`` and ``long_500k``
+       cut to :data:`SUBQ_CUTS` (:func:`run_cells`);
+    d. the launcher, ``python -m repro_torch.launch.serve --arch ARCH``,
+       in process."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.config.base import get_config, get_smoke_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as lm
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.tree import tree_leaves, tree_map
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are enabled: float32 checks would see TF32 error")
+    cfg = get_config(arch) if on_card else get_smoke_config(arch)
+    last = [time.perf_counter()]
+
+    def stamp(step: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase 24 {arch} {step}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    # -- a. bf16 through ServeEngine, three ways ------------------------ #
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"{arch}: {n_params} parameters, count_params says "
+          f"{cfg.param_count()}")
+    print(f"{arch} ({cfg.name}): {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"SSM heads {ssm_mod.ssm_dims(cfg)[1]} x {cfg.ssm_head_dim}, "
+          f"state {cfg.ssm_state}, padded vocab {cfg.padded_vocab}, "
+          f"{n_params} parameters = count_params; compute {cfg.dtype}")
+    out = serve_three_ways(cfg, params, build, dev, f"{arch} serve")
+    stamp("a")
+
+    # -- b. float32: the card against the CPU; the prefill state -------- #
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t = time.perf_counter()
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev)
+    errs, same = lm_parity(cfg32, params, cpu_params, batch, dev, steps=4,
+                           forward=False)
+    del cpu_params
+    err = max(errs.values())
+    print(f"{arch} float32, {device} against CPU (prefill 2 x 16 tokens, "
+          f"4 decode steps): max abs logit error {err:.3e} (bound "
+          f"{SERVE_F32_TOL:g}), greedy tokens "
+          f"{'equal' if same else 'DIFFER'}, {time.perf_counter() - t:.1f} s")
+    check(err <= SERVE_F32_TOL and same,
+          f"{arch} float32 against the CPU: {errs}, tokens equal {same}")
+    n_tok = SSM_STATE_TOKENS if on_card else 40
+    batch = lm_inputs(cfg32, np.random.default_rng(seed + 2), 2, n_tok, dev)
+    state_errs = []
+    closed = ssm_mod.final_state
+    ssm_mod.final_state = ssm_state_tap(ssm_mod, state_errs)
+    t = time.perf_counter()
+    try:
+        with torch.no_grad():
+            logits, caches, _ = lm.prefill(cfg32, params, batch, n_tok + 4)
+    finally:
+        ssm_mod.final_state = closed
+    tap_s = time.perf_counter() - t
+    with torch.no_grad():
+        finite = [bool(torch.isfinite(logits).all())]
+        for i in range(4):
+            tok = logits[:, :cfg.vocab_size].argmax(-1)
+            pos = torch.full((2,), n_tok + i, dtype=torch.long, device=dev)
+            logits, caches = lm.decode_step(cfg32, params, caches, tok, pos)
+            finite.append(bool(torch.isfinite(logits).all()))
+    worst = max(state_errs)
+    print(f"{arch} float32 prefill of 2 x {n_tok} tokens on {device} "
+          f"(chunk {cfg.ssm_chunk}): the SSM state of each of "
+          f"{len(state_errs)} layers against the per-token recurrence, "
+          f"largest difference {worst:.3e} of the state's largest "
+          f"magnitude (bound {SSM_STATE_TOL:g}); 4 decode steps, logits "
+          f"finite {all(finite)}; {tap_s:.1f} s with the recurrence")
+    check(len(state_errs) == cfg.n_layers and worst <= SSM_STATE_TOL
+          and all(finite), f"{arch} prefill state: {state_errs}, finite "
+          f"{finite}")
+    out.update(f32_err=err, state_err=worst)
+    del params, batch, logits, caches
+    if on_card:
+        gc.collect()  # a closed ServeEngine holds its params in a cycle
+        torch.cuda.empty_cache()
+    stamp("b")
+
+    # -- c. the four cells on one card ---------------------------------- #
+    out["cells"] = run_cells(arch, SUBQ_CUTS[arch], device, seed)
+    stamp("c")
+
+    # -- d. the launcher, as a user runs it ----------------------------- #
+    argv = ["--arch", arch, "--device", device]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(launch_serve.main(argv + ([] if on_card else ["--smoke"]))
+              == 0, f"{arch}: the launcher failed")
+    line = buf.getvalue().strip()
+    check(line.startswith(f"[serve] {arch}: 8 requests, 128 tokens"),
+          f"launcher printed {line!r}")
+    print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
+          f"{line}")
+    stamp("d")
+    return out
+
+
+ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic")
 
 
 def run_alone(argv: list[str]) -> int:
-    """``--only NAME``: one phase of :data:`ALONE` by itself (phase 20 on
-    one card; phase 23 over every visible card, its fault controls
-    included when there are several), the kernels it launches built
-    first; no result line."""
+    """``--only NAME``: one phase of :data:`ALONE` by itself (phases 20
+    and 24 on one card; phase 23 over every visible card, its fault
+    controls included when there are several), the kernels it launches
+    built first; no result line."""
     if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ALONE:
         print(f"usage: chip_smoke.py [--only {'|'.join(ALONE)}]",
               file=sys.stderr)
@@ -2624,13 +2845,16 @@ def run_alone(argv: list[str]) -> int:
     from repro_torch.pum import capture as capture_mod
     from repro_torch.serve.engine import ServeEngine
     t = time.perf_counter()
-    if argv[1] == "lm_serve":
+    if argv[1] in ("lm_serve", "lm_subquadratic"):
         programs = programs_of(capture_mod, lambda: ServeEngine(
             get_smoke_config(SERVE_ARCH), max_batch=4, max_len=256,
             eos_id=-1, device="cpu").close())
         _build.build_many([bit_transpose.build_item()]
                           + [codegen.build_item(p) for p in programs])
-        lm_serve("cuda", _build, programs[0], SEED)
+        if argv[1] == "lm_serve":
+            lm_serve("cuda", _build, programs[0], SEED)
+        else:
+            lm_subquadratic("cuda", _build, SEED)
     else:
         _build.build_many([bit_transpose.build_item()])
         lm_cells_sharded("cuda", _build, SEED)
@@ -3586,7 +3810,11 @@ def main() -> int:
     sharded = lm_cells_sharded("cuda", _build, SEED)
     clock.stamp("23")
 
-    # -- 24. results ----------------------------------------------------- #
+    # -- 24. the sub-quadratic family at full width --------------------- #
+    subq = lm_subquadratic("cuda", _build, SEED)
+    clock.stamp("24")
+
+    # -- 25. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -3600,8 +3828,10 @@ def main() -> int:
          + serve["serve_launches"]["bit_transpose32"]
          + train["train_launches"]["bit_transpose32"]
          + shard["shard_launches"]["bit_transpose32"]
-         + sharded["launches"]["bit_transpose32"],
+         + sharded["launches"]["bit_transpose32"]
+         + subq["launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
+         "launches_subquadratic": subq["launches"]["bit_transpose32"],
          "launches_cells_sharded": sharded["launches"]["bit_transpose32"],
          "launches_shard_words": shard["shard_launches"]["bit_transpose32"],
          "launches_serve": serve["serve_launches"]["bit_transpose32"],
@@ -3628,8 +3858,10 @@ def main() -> int:
          + serve["serve_launches"]["run_program_cuda"]
          + train["train_launches"]["run_program_cuda"]
          + shard["shard_launches"]["run_program_cuda"]
-         + sharded["launches"]["run_program_cuda"],
+         + sharded["launches"]["run_program_cuda"]
+         + subq["launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
+         "launches_subquadratic": subq["launches"]["run_program_cuda"],
          "launches_cells_sharded": sharded["launches"]["run_program_cuda"],
          "launches_shard_words": shard["shard_launches"]["run_program_cuda"],
          "launches_serve": serve["serve_launches"]["run_program_cuda"],

@@ -45,9 +45,9 @@ packed-bitmap mode on out-of-width operands: each 64-bit word splits onto
 the plane layout's lanes (two 32-bit lanes per word on the 32-bit layout)
 and the lanes re-join at materialization.
 
-Later slices bring the reference's other paths; asking for one raises
-``NotImplementedError`` naming its slice: on ``pum.Device``, ``autotune``
-(the autotune slice).
+``pum.Device.autotune`` tunes the config from profiled telemetry
+(``repro_torch.autotune``); online, it sets the engine's ``autotuner``,
+whose ``on_flush`` counts windows and re-tunes between flushes.
 """
 
 from __future__ import annotations

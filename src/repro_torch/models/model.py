@@ -581,8 +581,9 @@ def _write_kv(c: dict, k: torch.Tensor, v: torch.Tensor, t: int) -> None:
 
 
 def _ssm_prefill_cache(cfg, lp: dict, h: torch.Tensor, cache: dict) -> dict:
-    """The final SSM state + conv window for decode handoff (the naive
-    recurrence's final state, as the reference computes it)."""
+    """The final SSM state + conv window for decode handoff: the state
+    the reference's per-token recurrence ends in, from ``cache["state"]``,
+    in closed form (``ssm.final_state``)."""
     d_inner, nh = ssm_mod.ssm_dims(cfg)
     n = cfg.ssm_state
     _, xbc, dtraw = ssm_mod._split_proj(cfg, lp, h)
@@ -592,14 +593,10 @@ def _ssm_prefill_cache(cfg, lp: dict, h: torch.Tensor, cache: dict) -> dict:
                                          cfg.ssm_head_dim).float()
     b = xbc_conv[..., d_inner:d_inner + n].float()
     dt = ssm_mod.softplus(dtraw.float() + lp["dt_bias"][None, None].float())
-    neg_a = -torch.exp(lp["a_log"].float())
-    state = cache["state"]
-    for i in range(t):
-        a_t = torch.exp(dt[:, i] * neg_a[None])
-        state = (a_t[..., None, None] * state
-                 + torch.einsum("bh,bn,bhp->bhnp", dt[:, i], b[:, i],
-                                xh[:, i]))
+    state = ssm_mod.final_state(xh, dt, lp["a_log"], b, cache["state"])
     width = cfg.ssm_conv_width
-    conv = xbc[:, t - (width - 1):, :] if t >= width - 1 else \
+    # A copy: a view would keep the layer's whole [B, T, ...] input
+    # projection alive as long as the cache.
+    conv = xbc[:, t - (width - 1):, :].clone() if t >= width - 1 else \
         torch.nn.functional.pad(xbc, (0, 0, width - 1 - t, 0))
     return {"conv": conv, "state": state}

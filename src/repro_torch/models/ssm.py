@@ -94,7 +94,11 @@ def ssd_chunked(cfg, x, dt, a_log, b, c, d_skip):
     # Intra-chunk (attention-like, causal).
     rel = cum[:, :, :, None] - cum[:, :, None, :]         # [B,nc,t,s,H]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    att = torch.where(mask[None, None, :, :, None], torch.exp(rel), 0.0)
+    # Masked before the exp: above the diagonal ``rel`` is a positive decay
+    # sum that can overflow, and exp's backward would make 0 * inf = NaN
+    # there (the reference's order, ``where(mask, exp(rel), 0)``, does).
+    att = torch.exp(torch.where(mask[None, None, :, :, None], rel,
+                                float("-inf")))
     gbc = torch.einsum("bcin,bcjn->bcij", cc, bc)         # C[t].B[s]
     w_ts = att * gbc[..., None] * dtc[:, :, None]         # [B,nc,t,s,H]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_ts, xc)
@@ -113,10 +117,10 @@ def ssd_chunked(cfg, x, dt, a_log, b, c, d_skip):
             + s_loc[:, ci]
     s_prev = torch.stack(prevs, dim=1)                    # [B,nc,H,N,P]
 
-    # Inter-chunk output: y[t] += C[t] . (exp(cum[t]) * S_prev)
-    y_inter = torch.einsum("bcin,bcihnp->bcihp", cc,
-                           torch.exp(cum)[..., None, None]
-                           * s_prev[:, :, None])
+    # Inter-chunk output: y[t] += C[t] . (exp(cum[t]) * S_prev), the decay
+    # taken out of the contraction (no [B,nc,Q,H,N,P] product is formed).
+    y_inter = torch.exp(cum)[..., None] * torch.einsum(
+        "bcin,bchnp->bcihp", cc, s_prev)
     y = (y_intra + y_inter).reshape(bs, t, h, pdim)
     y = y + d_skip.float()[None, None, :, None] * x32
     return y.to(x.dtype)
@@ -170,6 +174,38 @@ def ssm_naive(cfg, p: dict, u: torch.Tensor) -> torch.Tensor:
     y = y.reshape(bs, t, d_inner).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     return torch.einsum("bte,ed->btd", y, p["out_proj"].to(u.dtype))
+
+
+def final_state(x, dt, a_log, b, state):
+    """The SSM state after the tokens of ``x`` ([B,T,H,P]; ``dt``
+    [B,T,H], ``b`` [B,T,N], float32) from ``state`` ([B,H,N,P]): the
+    per-token recurrence ``S <- exp(dt_t A) S + dt_t B_t (x) x_t``
+    (:func:`final_state_naive`) in closed form,
+
+        S_T = exp(sum_t dt_t A) S_0 + sum_i exp(sum_{j>i} dt_j A) dt_i B_i (x) x_i.
+
+    The decay sums run from the last token back (flip, cumsum, flip), so
+    the weights of the tokens that matter, the last ones, are short sums:
+    no ``cum_T - cum_i`` cancels, whatever ``T``."""
+    neg_a = -torch.exp(a_log.float())
+    logdec = dt * neg_a[None, None]                       # [B,T,H]
+    from_i = torch.flip(torch.cumsum(torch.flip(logdec, [1]), 1), [1])
+    after_i = F.pad(from_i[:, 1:], (0, 0, 0, 1))          # sum over j > i
+    xw = x * (torch.exp(after_i) * dt)[..., None]         # [B,T,H,P]
+    return (torch.exp(from_i[:, 0])[..., None, None] * state
+            + torch.einsum("btn,bthp->bhnp", b, xw))
+
+
+def final_state_naive(x, dt, a_log, b, state):
+    """:func:`final_state` token by token, as the reference's
+    ``lax.scan`` runs it (the oracle of tests and ``chip_smoke.py``)."""
+    neg_a = -torch.exp(a_log.float())
+    for i in range(x.shape[1]):
+        a_t = torch.exp(dt[:, i] * neg_a[None])
+        state = (a_t[..., None, None] * state
+                 + torch.einsum("bh,bn,bhp->bhnp", dt[:, i], b[:, i],
+                                x[:, i]))
+    return state
 
 
 # ----------------------------------------------------------------------- #

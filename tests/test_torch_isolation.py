@@ -15,7 +15,10 @@ compressions, the trainer, the data pipeline, checkpoints, fault
 tolerance, the train launcher and the ``train_lm`` example — and so does the launch
 and distributed slice: a ``shard-words`` flush, the meshes and sharding
 rules, a cell built and traced by the analytic dry run, the roofline and
-its table, and the ``hypothesis`` fallback."""
+its table, and the ``hypothesis`` fallback — and so do the SSM prefill
+state's closed form, the ``quickstart``, ``coldboot_defense`` and
+``serve_llm`` examples; ``tools/check_api_torch.py`` imports neither
+(``tests/test_torch_check_api.py`` runs it with both unimportable)."""
 
 from __future__ import annotations
 
@@ -42,10 +45,10 @@ def _imports(path: pathlib.Path) -> list[str]:
 
 def test_no_jax_or_reference_imports():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "check_api_torch.py"]
     assert len(files) > 10
     packages = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
-                for p in files[:-1]}
+                for p in files[:-2]}
     assert {"config", "configs", "models", "serve", "launch",
             "distributed", "train", "data", "checkpoint"} <= packages
     names = {p.relative_to(ROOT).as_posix() for p in files}
@@ -58,7 +61,11 @@ def test_no_jax_or_reference_imports():
             "src/repro_torch/launch/dryrun.py",
             "src/repro_torch/launch/dryrun_table.py",
             "src/repro_torch/distributed/sharding.py",
-            "src/repro_torch/testing.py"} <= names
+            "src/repro_torch/testing.py",
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/coldboot_defense.py",
+            "src/repro_torch/examples/serve_llm.py",
+            "tools/check_api_torch.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -253,6 +260,26 @@ def test_port_runs_with_jax_and_reference_unimportable():
         seen = []
         given(a=st.integers(0, 9))(lambda a: seen.append(a))()
         assert len(seen) == 10
+        # The SSM prefill state in closed form; the remaining examples.
+        from repro_torch.models import ssm as ssm_mod
+        from repro_torch.examples import (coldboot_defense, quickstart,
+                                          serve_llm)
+        g = torch.Generator().manual_seed(0)
+        xs, dts = torch.randn(1, 9, 2, 3, generator=g), torch.rand(1, 9, 2)
+        bs, s0 = torch.randn(1, 9, 4, generator=g), torch.ones(1, 2, 4, 3)
+        assert torch.allclose(
+            ssm_mod.final_state(xs, dts, torch.zeros(2), bs, s0),
+            ssm_mod.final_state_naive(xs, dts, torch.zeros(2), bs, s0),
+            atol=1e-5)
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            quickstart.main(["--device", "cpu"])
+            coldboot_defense.main(["--device", "cpu"])
+            done = serve_llm.main(["--arch", "mamba2-130m", "--requests",
+                                   "2", "--max-new", "2", "--device", "cpu"])
+        text = buf.getvalue()
+        assert "correct=False" not in text and text.count("correct=True") == 3
+        assert text.count("verified_wiped=True") == 3
+        assert [len(r.out_tokens) for r in done] == [2, 2]
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
