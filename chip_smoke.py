@@ -183,7 +183,16 @@ into ``build/repro_torch/`` and then, failing on the first error:
     ``train_4k``, ``prefill_32k``, ``decode_32k`` and ``long_500k`` cells
     on one card (batches cut to ``SUBQ_CUTS``), the launcher, and the
     ``serve_llm`` example;
-25. prints one JSON line of per-kernel results, the card's name and power
+25. the MoE and encoder-decoder families (``lm_moe_encdec``):
+    moonshot-v1-16b-a3b at full width and depth, its 28.3 B weights
+    drawn in bfloat16, through ``ServeEngine`` three ways (equal
+    streams, K1/K2 each tick); float32 at 4 layers card against CPU with
+    every MoE layer's expert ids and drop masks identical; its cells cut
+    to ``MOE_ENCDEC_CUTS``; seamless-m4t-large-v2 at full width and
+    depth served through ``prefill``/``decode_step`` with its encoder's
+    memory (4 x 4096 frames, equal streams over two runs), float32 card
+    against CPU, and its three cells;
+26. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -1094,16 +1103,17 @@ def profile_ticks(step, n_ticks: int, wall_ms: float | None = None
             "kinds": dict(kinds)}
 
 
-def lm_inputs(cfg, rng, b: int, t: int, device) -> dict:
-    """A seeded batch for ``cfg`` (frames and patches for the stub
-    frontends) on ``device``."""
+def lm_inputs(cfg, rng, b: int, t: int, device,
+              frames: int | None = None) -> dict:
+    """A seeded batch for ``cfg`` (``frames`` audio frames, ``t`` unless
+    given, and patches for the stub frontends) on ``device``."""
     import numpy as np
     import torch
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int64))}
     if cfg.encoder_decoder:
-        batch["frames"] = torch.as_tensor(
-            rng.standard_normal((b, t, cfg.d_model), np.float32) * 0.02)
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (b, frames or t, cfg.d_model), np.float32) * 0.02)
     if cfg.frontend == "vision":
         batch["patches"] = torch.as_tensor(rng.standard_normal(
             (b, cfg.n_frontend_tokens, cfg.d_model), np.float32) * 0.02)
@@ -2003,11 +2013,35 @@ def shard_words_run(device: str, build, seed: int) -> dict:
     return out
 
 
+def _free(on_card: bool) -> None:
+    """Return the card's freed memory, tensors held in reference cycles
+    (a closed ServeEngine's params, a cell's arguments) included."""
+    if on_card:
+        import torch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _stamper(phase: str):
+    """A ``stamp(step)`` that prints ``[time] phase PHASE STEP`` with the
+    seconds since its last call (or since this one)."""
+    last = [time.perf_counter()]
+
+    def stamp(step: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase} {step}: {now - last[0]:.1f} s",
+              flush=True)
+        last[0] = now
+    return stamp
+
+
 def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
     """``arch``'s cells through ``steps.build_cell(..., make_test_mesh(1))``
     at full width (weights from a ``torch.Generator`` seeded 0), each
     shape's sequence length kept and its global batch cut as ``cuts``
-    says ((shape, batch) pairs): the tensors given to the cell are the dry
+    says ((shape, batch) pairs, or (shape, batch, layers) where the depth
+    is cut too: the cell is built from, and bounded by, the config with
+    that many layers): the tensors given to the cell are the dry
     run's ``meta`` arguments made real, their bytes equal to its
     ``argument_size_in_bytes`` on the 1x1 mesh, and the outputs finite;
     prints each cell's cold and warm wall (each ending in a read-back),
@@ -2029,19 +2063,24 @@ def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
         if on_card:
             torch.cuda.synchronize(dev)
 
-    cfg = get_config(arch) if on_card else get_smoke_config(arch)
+    full = get_config(arch) if on_card else get_smoke_config(arch)
     # One card's 1x1 mesh: the cut cells run unsharded on it.
     mesh = make_test_mesh(1) if on_card else make_test_mesh(devices=[dev])
     real_get_config = steps.get_config
-    if not on_card:  # rehearsal: the smoke config through the same builder
-        steps.get_config = lambda arch: cfg
     try:
-        for name, cut in cuts:
+        for name, cut, *depth in cuts:
+            t_cell = time.perf_counter()
+            # the rehearsal builds the smoke config through the same path
+            cfg = full if not depth or depth[0] is None else \
+                dataclasses.replace(full, n_layers=min(depth[0],
+                                                       full.n_layers))
+            steps.get_config = lambda arch, cfg=cfg: cfg
             g = LM_SHAPES[name]
             seq = g.seq_len if on_card else 16
             shape = ShapeConfig(name, g.kind, seq, cut)
             cell = steps.build_cell(arch, shape, mesh)
             rec = dryrun.trace_cell(cell, mesh)
+            before = torch.cuda.memory_allocated(dev) if on_card else 0
             args = lm_cell_args(cell, cfg, dev, seed)
             metas, reals = tree_leaves(cell.args), tree_leaves(args)
             check(len(metas) == len(reals) and all(
@@ -2065,23 +2104,35 @@ def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
                     res[2].values() if g.kind == "train" else res[:1])]
                 walls.append(time.perf_counter() - t)
             peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-            check(all(bool(torch.isfinite(x).all()) for x in
-                      host + tree_leaves(res) if x.is_floating_point()),
+            check(all(all_finite(x) for x in host + tree_leaves(res)
+                      if x.is_floating_point()),
                   f"{name}: non-finite outputs")
-            bound = one_card_bound(roofline, arch, name, cut)
+            bound = one_card_bound(roofline, cfg, name, cut)
             size = "full width" if on_card else "smoke"
+            if cfg.n_layers != full.n_layers:
+                size += f", {cfg.n_layers} of {full.n_layers} layers"
             print(f"{name} cut to batch {cut} x {seq} ({g.global_batch} "
                   f"global), {arch} {size}: {given:,} argument "
                   f"bytes on the card = the dry run's; "
                   f"outputs finite; wall {walls[0]:.3f} s cold, "
                   f"{walls[1]:.3f} s warm; peak memory "
-                  f"{peak / 2**30:.2f} GiB; dry run "
+                  f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} "
+                  f"allocated before the arguments); dry run "
                   f"{rec['flops'] / 1e12:.3f} TFLOP counted (trace {rec['lower_compile_s']} s); "
                   f"one-card bound {bound['bound_s'] * 1e3:.2f} ms, wall / "
                   f"bound {walls[1] / bound['bound_s']:.1f} "
                   f"(compute {bound['compute_s'] * 1e3:.2f}, memory "
                   f"{bound['memory_s'] * 1e3:.2f}; analytic "
                   f"{bound['flops'] / 1e12:.3f} TFLOP)")
+            if cfg.encoder_decoder:
+                left = encdec_flops(cfg, name, cut)
+                bound.update(left)
+                print(f"  {name}: the roofline counts no cross-attention "
+                      f"({left['xattn_flops'] / 1e12:.3f} TFLOP here) and "
+                      f"its encoder term is "
+                      f"{left['encoder_counted_flops'] / 1e12:.3f} TFLOP "
+                      f"where the encoder runs "
+                      f"{left['encoder_flops'] / 1e12:.3f} TFLOP")
             if on_card:
                 prof = profile_ticks(lambda: cell.fn(*args), 1,
                                      wall_ms=walls[1] * 1e3)
@@ -2097,12 +2148,13 @@ def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
                                   for k, n, ms in prof["top_time"]))
                 out[f"{name}_profile"] = prof
             out[name] = {"warm_s": walls[1], "cold_s": walls[0],
-                         "peak_gib": peak / 2**30,
+                         "peak_gib": peak / 2**30, "layers": cfg.n_layers,
                          "dry_run_flops": rec["flops"],
                          "arg_bytes": given, **bound}
             del cell, args, res, host, reals
-            if on_card:
-                torch.cuda.empty_cache()
+            _free(on_card)
+            print(f"  {name}: {time.perf_counter() - t_cell:.1f} s in all "
+                  f"(build, dry-run trace, arguments, calls, checks)")
     finally:
         steps.get_config = real_get_config
 
@@ -2141,38 +2193,53 @@ def lm_cells_run(device: str, seed: int) -> dict:
     return out
 
 
+def all_finite(x) -> bool:
+    """Whether every value of ``x`` is finite, checked 2**27 values at a
+    time (a whole-cache mask would take GiBs)."""
+    import torch
+    return all(bool(torch.isfinite(t).all())
+               for t in x.reshape(-1).split(1 << 27))
+
+
 def lm_cell_args(cell, cfg, dev, seed: int, place=None) -> tuple:
     """Real tensors for a cell's ``meta`` arguments on ``dev``: the
     parameters drawn by ``init_params`` from a ``torch.Generator`` seeded
-    0 (cast as the specs are), AdamW state as zeros (step 0), decode
-    caches as standard normal values from a generator seeded ``seed + 1``
-    (every ring slot holds a key and a value the step attends to), token
-    ids and positions from a generator seeded ``seed``. ``place(x,
-    sharding)``, when given, takes each state or cache leaf as it is made
-    (a sharded run keeps only its rank's part)."""
+    0 in the specs' dtype (a serving cell's bfloat16 weights are drawn
+    in bfloat16, a layer slice at a time), AdamW state as zeros (step
+    0), decode caches as standard normal values from a generator seeded
+    ``seed + 1`` (every ring slot holds a key and a value the step
+    attends to), token ids and positions, audio frames (normal, 0.02) and
+    an encoder memory (normal) from a generator seeded ``seed``.
+    ``place(x, sharding)``, when given, takes each state or cache leaf as
+    it is made (a sharded run keeps only its rank's part)."""
     import torch
     from repro_torch.models import model as lm
-    from repro_torch.models.tree import tree_map
+    from repro_torch.models.tree import tree_leaves, tree_map
     place = place or (lambda x, _sharding: x)
+    dtype = tree_leaves(cell.args[0])[0].dtype
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            device=dev)
-    params = tree_map(lambda p, spec: p.to(spec.dtype), params,
-                      cell.args[0])
+                            device=dev,
+                            dtype=None if dtype == torch.float32 else dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(spec, scale=1.0):
+        return torch.randn(spec.shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(scale).to(spec.dtype)
+
+    def batch(specs):
+        return {k: torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
+                                 device=dev, dtype=v.dtype)
+                if k == "tokens" else normal(v, 0.02)
+                for k, v in specs.items()}
+
     kind = cell.shape.kind
     if kind == "train":
-        tok = cell.args[2]["tokens"]
         return (params, tree_map(lambda spec, sh: place(torch.zeros(
                     spec.shape, dtype=spec.dtype, device=dev), sh),
                     cell.args[1], cell.in_shardings[1]),
-                {"tokens": torch.randint(0, cfg.vocab_size, tok.shape,
-                                         generator=gen, device=dev,
-                                         dtype=tok.dtype)})
+                batch(cell.args[2]))
     if kind == "prefill":
-        tok = cell.args[1]["tokens"]
-        return (params, {"tokens": torch.randint(
-            0, cfg.vocab_size, tok.shape, generator=gen, device=dev,
-            dtype=tok.dtype)})
+        return params, batch(cell.args[1])
     fill = torch.Generator(device=dev).manual_seed(seed + 1)
     caches = tree_map(lambda spec, sh: place(torch.randn(
         spec.shape, generator=fill, dtype=spec.dtype, device=dev), sh),
@@ -2183,20 +2250,29 @@ def lm_cell_args(cell, cfg, dev, seed: int, place=None) -> tuple:
     # The last slot of the ring: every position of the cache attended.
     position = torch.full(pos.shape, cell.shape.seq_len - 1,
                           dtype=pos.dtype, device=dev)
+    if len(cell.args) == 5:   # the encoder-decoder's memory
+        return (params, caches, token, position,
+                place(normal(cell.args[4]), cell.in_shardings[4]))
     return params, caches, token, position
 
 
-def one_card_bound(roofline, arch: str, name: str, cut: int) -> dict:
-    """The roofline's least time for a cell cut to ``cut`` sequences on
-    one card: the analytic FLOPs scaled by ``cut`` over the global batch
-    at ``PEAK_FLOPS``, against the analytic bytes of one device holding
-    ``cut`` sequences (``global_batch / cut`` devices, no model axis) at
-    ``HBM_BW``."""
+def one_card_bound(roofline, cfg, name: str, cut: int) -> dict:
+    """The roofline's least time for ``cfg`` (a config that may be cut in
+    depth; the roofline reads it in place of its arch's) in a cell cut
+    to ``cut`` sequences on one card: the analytic FLOPs scaled by
+    ``cut`` over the global batch at ``PEAK_FLOPS``, against the analytic
+    bytes of one device holding ``cut`` sequences (``global_batch / cut``
+    devices, no model axis) at ``HBM_BW``."""
     from repro_torch.config.base import LM_SHAPES
     gb = LM_SHAPES[name].global_batch
-    flops = roofline.analytic_flops(arch, name) * cut / gb
-    nbytes = roofline.analytic_bytes_per_chip(arch, name, gb // cut,
-                                              msize=1)
+    real_get_config = roofline.get_config
+    roofline.get_config = lambda _arch: cfg
+    try:
+        flops = roofline.analytic_flops(cfg.name, name) * cut / gb
+        nbytes = roofline.analytic_bytes_per_chip(cfg.name, name, gb // cut,
+                                                  msize=1)
+    finally:
+        roofline.get_config = real_get_config
     compute, memory = flops / roofline.PEAK_FLOPS, nbytes / roofline.HBM_BW
     return {"flops": flops, "bytes": nbytes, "compute_s": compute,
             "memory_s": memory, "bound_s": max(compute, memory)}
@@ -2649,13 +2725,16 @@ def one_bit_run(grads, dev, build) -> dict:
 SUBQ_ARCHS = ("mamba2-130m", "hymba-1.5b")   # the sub-quadratic family
 # (shape, batch on one card) per arch: each shape's sequence length and
 # the model's depth are kept; only the global batch is cut, to what one
-# 80 GB card holds, except hymba-1.5b's prefill_32k: 2 sequences peak
-# at ~30 GiB, so 4 would fit, but a call of 2 takes ~36 s, so it runs 2
-# to keep the script inside its time limit (PERF.md section 4).
+# 80 GB card holds, and further to keep the script inside its time
+# limit (PERF.md section 4): hymba-1.5b's prefill_32k would fit 4
+# sequences (2 peak at ~30 GiB) but a call of 2 takes ~36 s, so it runs
+# 1 (the configuration a device-side index assert was once seen in);
+# both train_4k cells run half the batch that fits (mamba2-130m's 16
+# peak at 67 GiB, hymba-1.5b's 4 at 58 GiB).
 SUBQ_CUTS = {
-    "mamba2-130m": (("train_4k", 16), ("prefill_32k", 16),
+    "mamba2-130m": (("train_4k", 8), ("prefill_32k", 16),
                     ("decode_32k", 128), ("long_500k", 1)),
-    "hymba-1.5b": (("train_4k", 4), ("prefill_32k", 2),
+    "hymba-1.5b": (("train_4k", 2), ("prefill_32k", 1),
                    ("decode_32k", 128), ("long_500k", 1)),
 }
 SSM_STATE_TOKENS = 2048   # a prefill of several 256-token chunks
@@ -2687,8 +2766,7 @@ def lm_subquadratic(device: str, build, seed: int) -> dict:
     import torch
     from repro_torch.examples import serve_llm
     if device != "cpu":
-        gc.collect()  # earlier phases' closed engines hold tensors in cycles
-        torch.cuda.empty_cache()
+        _free(True)  # earlier phases' closed engines hold tensors in cycles
         print(f"phase 24 starts with "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     out = {arch: subquadratic_arch(arch, device, build, seed)
@@ -2737,12 +2815,7 @@ def subquadratic_arch(arch: str, device: str, build, seed: int) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are enabled: float32 checks would see TF32 error")
     cfg = get_config(arch) if on_card else get_smoke_config(arch)
-    last = [time.perf_counter()]
-
-    def stamp(step: str) -> None:
-        now = time.perf_counter()
-        print(f"[time] phase 24 {arch} {step}: {now - last[0]:.1f} s")
-        last[0] = now
+    stamp = _stamper(f"24 {arch}")
 
     # -- a. bf16 through ServeEngine, three ways ------------------------ #
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -2804,9 +2877,7 @@ def subquadratic_arch(arch: str, device: str, build, seed: int) -> dict:
           f"{finite}")
     out.update(f32_err=err, state_err=worst)
     del params, batch, logits, caches
-    if on_card:
-        gc.collect()  # a closed ServeEngine holds its params in a cycle
-        torch.cuda.empty_cache()
+    _free(on_card)
     stamp("b")
 
     # -- c. the four cells on one card ---------------------------------- #
@@ -2828,12 +2899,348 @@ def subquadratic_arch(arch: str, device: str, build, seed: int) -> dict:
     return out
 
 
-ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic")
+MOE_ARCH = "moonshot-v1-16b-a3b"         # the MoE family
+ENCDEC_ARCH = "seamless-m4t-large-v2"    # the encoder-decoder family
+MOE_F32_LAYERS = 4   # the dense layer and 3 MoE layers: 9.1 GiB in float32
+ENCDEC_FRAMES = 48   # float32 check: a memory longer than the 16 tokens
+# (shape, batch on one card, layers; None keeps the depth): each shape's
+# sequence length and the width are kept. moonshot-v1-16b-a3b's decode_32k
+# runs its 48 layers (52.7 GiB of bfloat16 weights, 12.0 GiB of cache at
+# 1 sequence); its train_4k 4 layers (float32 weights, gradients and
+# AdamW moments: 36.5 GiB; all 48 would need ~420 GiB); its prefill_32k
+# 4 layers for time: all 48 would fit at ~70 GiB but take ~18 s a call
+# (8 layers take 3.0 s).
+# seamless-m4t-large-v2 keeps its 24 + 24 layers; its batches are cut to
+# fit 80 GB (PERF.md section 4).
+MOE_ENCDEC_CUTS = {
+    MOE_ARCH: (("train_4k", 2, 4), ("prefill_32k", 1, 4),
+               ("decode_32k", 1, None)),
+    ENCDEC_ARCH: (("train_4k", 4, None), ("prefill_32k", 1, None),
+                  ("decode_32k", 16, None)),
+}
+
+
+def encdec_flops(cfg, name: str, cut: int) -> dict:
+    """What the roofline's analytic FLOPs leave out of an encoder-decoder
+    cell at ``cut`` sequences: every decoder layer's cross-attention
+    (query and output projections, the memory's K/V projection, scores
+    and values) and the encoder as it runs (over the frames: half a
+    ``train`` sequence, ``n_frontend_tokens`` at prefill, none in a
+    decode step) beside the encoder term the roofline counts (over the
+    cell's whole sequence, at its mean context); train counts forward,
+    backward and remat as the roofline does."""
+    from repro_torch.config.base import LM_SHAPES
+    g = LM_SHAPES[name]
+    d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    mult = (4.0 if cfg.remat == "full" else 3.0) if g.kind == "train" \
+        else 1.0
+    if g.kind == "train":
+        t = f = g.seq_len // 2
+    else:
+        t, f = (g.seq_len if g.kind == "prefill" else 1), \
+            cfg.n_frontend_tokens
+    proj = 2 * d * dh * (h + 2 * hkv) + 2 * h * dh * d
+    xattn = cfg.n_layers * (t * 4 * d * h * dh + f * 4 * d * hkv * dh
+                            + 4 * t * f * h * dh)
+    layer = proj + 6 * d * cfg.d_ff
+    enc = 0 if g.kind == "decode" else \
+        cfg.n_encoder_layers * f * (layer + 4 * f * h * dh)
+    counted = 0 if g.kind == "decode" else cfg.n_encoder_layers \
+        * g.seq_len * (layer + 4 * (g.seq_len / 2) * h * dh)
+    return {"xattn_flops": xattn * cut * mult,
+            "encoder_flops": enc * cut * mult,
+            "encoder_counted_flops": counted * cut * mult}
+
+
+def moe_route_tap(moe_mod, cfg, log: list):
+    """``moe.top_k`` that also appends, for each call (one MoE layer's
+    router), the expert ids it chose and the capacity-drop mask
+    ``moe.dispatch`` gives them, both on the host, to ``log``."""
+    chosen = moe_mod.top_k
+
+    def tapped(probs, k):
+        w, idx = chosen(probs, k)
+        _, ok = moe_mod.dispatch(idx.reshape(-1), cfg.n_experts,
+                                 moe_mod.capacity(cfg, probs.shape[0]))
+        log.append((idx.cpu(), ok.cpu()))
+        return w, idx
+    return tapped
+
+
+def lm_moe_encdec(device: str, build, seed: int) -> dict:
+    """Phase 25 (``lm_moe_encdec``) on ``device`` (``"cuda"`` on the card;
+    on the CPU it rehearses at each arch's smoke config):
+    :func:`moe_arch` for moonshot-v1-16b-a3b, then :func:`encdec_arch`
+    for seamless-m4t-large-v2."""
+    import torch
+    if device != "cpu":
+        _free(True)  # earlier phases' closed engines hold tensors in cycles
+        print(f"phase 25 starts with "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    out = {MOE_ARCH: moe_arch(device, build, seed)}
+    out[ENCDEC_ARCH] = encdec_arch(device, seed)
+    out["launches"] = out[MOE_ARCH]["serve_launches"]
+    return out
+
+
+def moe_arch(device: str, build, seed: int) -> dict:
+    """Phase 25 for moonshot-v1-16b-a3b (its full config on the card):
+
+    a. bfloat16 at full depth, the weights drawn in bfloat16 a layer
+       slice at a time (``init_params(..., dtype=torch.bfloat16)``),
+       their count equal to ``count_params``, through ``ServeEngine``
+       three ways (:func:`serve_three_ways`: equal streams, K1/K2 each
+       tick, the profile);
+    b. float32 at :data:`MOE_F32_LAYERS` layers, the card against the
+       CPU (:func:`lm_parity`: prefill 2 x 16 tokens and 4 decode steps
+       within ``SERVE_F32_TOL``, greedy tokens equal), every MoE layer's
+       expert ids and capacity-drop mask identical on both at the prefill
+       and at each decode step (:func:`moe_route_tap`);
+    c. its cells cut to :data:`MOE_ENCDEC_CUTS` (:func:`run_cells`).
+
+    No launcher run: ``launch/serve.py`` builds ``ServeEngine(cfg)``,
+    which draws the 105.5 GiB of float32 masters, as the reference's
+    launcher does."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import get_config, get_smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.tree import tree_leaves, tree_map
+    arch = MOE_ARCH
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are enabled: float32 checks would see TF32 error")
+    cfg = get_config(arch) if on_card else get_smoke_config(arch)
+    stamp = _stamper(f"25 {arch}")
+
+    # -- a. bf16 at full depth through ServeEngine, three ways ---------- #
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count() and all(
+        x.dtype == torch.bfloat16 for x in tree_leaves(params)),
+          f"{arch}: {n_params} parameters, count_params says "
+          f"{cfg.param_count()}")
+    print(f"{arch} ({cfg.name}): {cfg.n_layers} layers "
+          f"({cfg.first_dense_layers} dense), d {cfg.d_model}, "
+          f"{cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared of "
+          f"{cfg.moe_d_ff}, padded vocab {cfg.padded_vocab}, {n_params:,} "
+          f"parameters drawn in bfloat16 = count_params; "
+          + (f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+             f"allocated" if on_card else "on the CPU"))
+    out = serve_three_ways(cfg, params, build, dev, f"{arch} serve")
+    del params
+    _free(on_card)
+    stamp("a")
+
+    # -- b. float32 at a cut depth: the card against the CPU ------------ #
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=min(MOE_F32_LAYERS, cfg.n_layers))
+    t = time.perf_counter()
+    params = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev)
+    routes: list = []
+    chosen = moe_mod.top_k
+    moe_mod.top_k = moe_route_tap(moe_mod, cfg32, routes)
+    try:
+        errs, same = lm_parity(cfg32, params, cpu_params, batch, dev,
+                               steps=4, forward=False)
+    finally:
+        moe_mod.top_k = chosen
+    del params, cpu_params
+    err = max(errs.values())
+    # lm_parity runs each stage on the device, then on the CPU: blocks of
+    # one router call per MoE layer, alternating.
+    n_moe = cfg32.n_layers - cfg32.first_dense_layers
+    blocks = [routes[i:i + n_moe] for i in range(0, len(routes), n_moe)]
+    card, host = blocks[0::2], blocks[1::2]
+    routes_equal = len(card) == len(host) == 5 and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for ca, hb in zip(card, host) for a, b in zip(ca, hb))
+    dropped = [sum(int((~ok).sum()) for _, ok in blk) for blk in card]
+    entries = [sum(ok.numel() for _, ok in blk) for blk in card]
+    print(f"{arch} float32 at {cfg32.n_layers} layers, {device} against "
+          f"CPU (prefill 2 x 16 tokens, 4 decode steps): max abs logit "
+          f"error {err:.3e} (bound {SERVE_F32_TOL:g}), greedy tokens "
+          f"{'equal' if same else 'DIFFER'}; router decisions of {n_moe} "
+          f"MoE layers at the prefill and 4 decode steps (capacity "
+          f"{moe_mod.capacity(cfg32, 32)} and "
+          f"{moe_mod.capacity(cfg32, 2)} a expert): expert ids and drop "
+          f"masks {'identical' if routes_equal else 'DIFFER'}, dropped "
+          f"{dropped} of {entries} (token, choice) entries; "
+          f"{time.perf_counter() - t:.1f} s")
+    check(err <= SERVE_F32_TOL and same and routes_equal,
+          f"{arch} float32 against the CPU: {errs}, tokens equal {same}, "
+          f"routes equal {routes_equal} ({len(card)}/{len(host)} stages)")
+    out.update(f32_err=err, dropped=dropped)
+    _free(on_card)
+    stamp("b")
+
+    # -- c. the cells on one card ------------------------------------------ #
+    out["cells"] = run_cells(arch, MOE_ENCDEC_CUTS[arch], device, seed)
+    stamp("c")
+    return out
+
+
+def encdec_serve(cfg, params, dev, seed: int, tag: str) -> dict:
+    """Greedy serving of an encoder-decoder through ``prefill`` and
+    ``decode_step`` with the memory (``ServeEngine`` passes no frames, in
+    the reference as in the port): 4 sequences of ``n_frontend_tokens``
+    frames (normal, 0.02) and 16-token prompts from ``default_rng(seed)``,
+    16 greedy decode steps after the prefill's token, run twice; the two
+    token streams are identical. On the card, 8 decode steps at the last
+    position are profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as lm
+    on_card = dev.type == "cuda"
+    b, t, steps = 4, 16, 16
+    batch = lm_inputs(cfg, np.random.default_rng(seed), b, t, dev,
+                      frames=cfg.n_frontend_tokens)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def run():
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches, memory = lm.prefill(cfg, params, batch,
+                                                t + steps)
+            tok = logits[:, :cfg.vocab_size].argmax(-1)
+            toks = [tok.cpu()]
+            t1 = time.perf_counter()
+            for i in range(steps):
+                pos = torch.full((b,), t + i, dtype=torch.long, device=dev)
+                logits, caches = lm.decode_step(cfg, params, caches, tok,
+                                                pos, memory=memory)
+                tok = logits[:, :cfg.vocab_size].argmax(-1)
+                toks.append(tok.cpu())   # a read-back each step
+        t2 = time.perf_counter()
+        return (torch.stack(toks, 1), t1 - t0, (t2 - t1) / steps,
+                t2 - t0, (caches, memory, tok))
+
+    runs = [run() for _ in range(2)]
+    same = torch.equal(runs[0][0], runs[1][0])
+    streams, prefill_s, step_s, wall, (caches, memory, tok) = runs[1]
+    out = {"prefill_s": prefill_s, "decode_step_ms": step_s * 1e3,
+           "tok_s": b * (steps + 1) / wall, "streams_equal": same}
+    print(f"{tag}: {b} sequences x {cfg.n_frontend_tokens} frames + "
+          f"{t}-token prompts, the prefill's token and {steps} greedy "
+          f"decode steps each, run twice: "
+          f"token streams {'identical' if same else 'DIFFER'}; warm run "
+          f"prefill {prefill_s * 1e3:.1f} ms, decode "
+          f"{step_s * 1e3:.3f} ms a step, {out['tok_s']:.1f} tok/s "
+          f"({wall:.3f} s)")
+    check(same and streams.shape == (b, steps + 1),
+          f"{tag}: the two runs gave different tokens")
+    if on_card:
+        pos = torch.full((b,), t + steps - 1, dtype=torch.long,
+                         device=dev)
+
+        def step():
+            with torch.no_grad():
+                return lm.decode_step(cfg, params, caches, tok, pos,
+                                      memory=memory)
+        prof = profile_ticks(step, 8)
+        check(prof is not None, f"{tag}: the profiler saw no device events")
+        print(f"{tag} decode step under torch.profiler (8 steps): "
+              f"{prof['wall_ms']:.3f} ms a step unprofiled "
+              f"({prof['profiled_wall_ms']:.3f} profiled), device busy "
+              f"{prof['device_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.3f}, {prof['device_ops']:.1f} device "
+              f"ops a step; longest (name, per step, ms): " + "; ".join(
+                  f"{k} {n:.1f} {ms:.3f}" for k, n, ms in prof["top_time"]))
+        out["profile"] = prof
+    return out
+
+
+def encdec_arch(device: str, seed: int) -> dict:
+    """Phase 25 for seamless-m4t-large-v2 (its full config on the card):
+
+    a. bfloat16 at full depth, the weights drawn in bfloat16, through
+       ``prefill``/``decode_step`` with the encoder's memory
+       (:func:`encdec_serve`);
+    b. float32 at full depth, the card against the CPU (:func:`lm_parity`:
+       prefill 2 x 16 tokens over :data:`ENCDEC_FRAMES` frames, 4 decode
+       steps carrying the memory, within ``SERVE_F32_TOL``, greedy tokens
+       equal);
+    c. its cells cut to :data:`MOE_ENCDEC_CUTS` (:func:`run_cells`).
+
+    No launcher run: ``launch/serve.py`` serves through ``ServeEngine``,
+    which gives ``prefill`` no frames (``KeyError: 'frames'``), as the
+    reference's does."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import get_config, get_smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.tree import tree_leaves, tree_map
+    arch = ENCDEC_ARCH
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    cfg = get_config(arch) if on_card else get_smoke_config(arch)
+    stamp = _stamper(f"25 {arch}")
+
+    # -- a. bf16 serving through prefill/decode_step -------------------- #
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"{arch}: {n_params} parameters, count_params says "
+          f"{cfg.param_count()}")
+    print(f"{arch} ({cfg.name}): {cfg.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, padded vocab "
+          f"{cfg.padded_vocab}, {n_params:,} parameters drawn in bfloat16 "
+          f"= count_params")
+    out = encdec_serve(cfg, params, dev, seed, f"{arch} serve")
+    del params
+    _free(on_card)
+    stamp("a")
+
+    # -- b. float32 at full depth: the card against the CPU ------------- #
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t = time.perf_counter()
+    params = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev,
+                      frames=ENCDEC_FRAMES)
+    errs, same = lm_parity(cfg32, params, cpu_params, batch, dev, steps=4,
+                           forward=False)
+    del params, cpu_params
+    err = max(errs.values())
+    print(f"{arch} float32, {device} against CPU (prefill 2 x 16 tokens "
+          f"over {ENCDEC_FRAMES} frames, 4 decode steps with the memory): "
+          f"max abs logit error {err:.3e} (bound {SERVE_F32_TOL:g}), "
+          f"greedy tokens {'equal' if same else 'DIFFER'}, "
+          f"{time.perf_counter() - t:.1f} s")
+    check(err <= SERVE_F32_TOL and same,
+          f"{arch} float32 against the CPU: {errs}, tokens equal {same}")
+    out["f32_err"] = err
+    _free(on_card)
+    stamp("b")
+
+    # -- c. the cells on one card ---------------------------------------- #
+    out["cells"] = run_cells(arch, MOE_ENCDEC_CUTS[arch], device, seed)
+    stamp("c")
+    return out
+
+
+ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic", "lm_moe_encdec")
 
 
 def run_alone(argv: list[str]) -> int:
-    """``--only NAME``: one phase of :data:`ALONE` by itself (phases 20
-    and 24 on one card; phase 23 over every visible card, its fault
+    """``--only NAME``: one phase of :data:`ALONE` by itself (phases 20,
+    24 and 25 on one card; phase 23 over every visible card, its fault
     controls included when there are several), the kernels it launches
     built first; no result line."""
     if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ALONE:
@@ -2845,7 +3252,7 @@ def run_alone(argv: list[str]) -> int:
     from repro_torch.pum import capture as capture_mod
     from repro_torch.serve.engine import ServeEngine
     t = time.perf_counter()
-    if argv[1] in ("lm_serve", "lm_subquadratic"):
+    if argv[1] in ("lm_serve", "lm_subquadratic", "lm_moe_encdec"):
         programs = programs_of(capture_mod, lambda: ServeEngine(
             get_smoke_config(SERVE_ARCH), max_batch=4, max_len=256,
             eos_id=-1, device="cpu").close())
@@ -2853,8 +3260,10 @@ def run_alone(argv: list[str]) -> int:
                           + [codegen.build_item(p) for p in programs])
         if argv[1] == "lm_serve":
             lm_serve("cuda", _build, programs[0], SEED)
-        else:
+        elif argv[1] == "lm_subquadratic":
             lm_subquadratic("cuda", _build, SEED)
+        else:
+            lm_moe_encdec("cuda", _build, SEED)
     else:
         _build.build_many([bit_transpose.build_item()])
         lm_cells_sharded("cuda", _build, SEED)
@@ -3814,7 +4223,11 @@ def main() -> int:
     subq = lm_subquadratic("cuda", _build, SEED)
     clock.stamp("24")
 
-    # -- 25. results ----------------------------------------------------- #
+    # -- 25. the MoE and encoder-decoder families at full width --------- #
+    moe_encdec = lm_moe_encdec("cuda", _build, SEED)
+    clock.stamp("25")
+
+    # -- 26. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -3829,9 +4242,11 @@ def main() -> int:
          + train["train_launches"]["bit_transpose32"]
          + shard["shard_launches"]["bit_transpose32"]
          + sharded["launches"]["bit_transpose32"]
-         + subq["launches"]["bit_transpose32"],
+         + subq["launches"]["bit_transpose32"]
+         + moe_encdec["launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
          "launches_subquadratic": subq["launches"]["bit_transpose32"],
+         "launches_moe_encdec": moe_encdec["launches"]["bit_transpose32"],
          "launches_cells_sharded": sharded["launches"]["bit_transpose32"],
          "launches_shard_words": shard["shard_launches"]["bit_transpose32"],
          "launches_serve": serve["serve_launches"]["bit_transpose32"],
@@ -3859,9 +4274,11 @@ def main() -> int:
          + train["train_launches"]["run_program_cuda"]
          + shard["shard_launches"]["run_program_cuda"]
          + sharded["launches"]["run_program_cuda"]
-         + subq["launches"]["run_program_cuda"],
+         + subq["launches"]["run_program_cuda"]
+         + moe_encdec["launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
          "launches_subquadratic": subq["launches"]["run_program_cuda"],
+         "launches_moe_encdec": moe_encdec["launches"]["run_program_cuda"],
          "launches_cells_sharded": sharded["launches"]["run_program_cuda"],
          "launches_shard_words": shard["shard_launches"]["run_program_cuda"],
          "launches_serve": serve["serve_launches"]["run_program_cuda"],

@@ -90,18 +90,25 @@ def _dec_xattn_params(cfg, draw: Draw) -> Params:
 
 
 def init_params(cfg, generator: torch.Generator | int | None = 0,
-                device="cuda") -> Params:
+                device="cuda", dtype: torch.dtype | None = None) -> Params:
     """Float32 master parameters with the reference's tree, shapes and
     scales, drawn from ``generator`` (a ``torch.Generator`` on
     ``device``, or an integer seed for one) on ``device``. On the
-    ``meta`` device nothing is allocated."""
+    ``meta`` device nothing is allocated.
+
+    ``dtype`` (the port's own keyword; the reference draws float32
+    only) stores every leaf in that dtype, drawn one layer slice of a
+    stacked leaf at a time so that no float32 stacked leaf exists
+    (``models/init.py``): other values than a cast of the float32 draw.
+    Parameters that must equal the reference's come through
+    ``convert.params_from_reference``."""
     device = torch.device(device)
     if device.type == "meta":
         generator = None
     elif not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=device).manual_seed(
             int(generator or 0))
-    draw = Draw(generator, device)
+    draw = Draw(generator, device, dtype=dtype)
     n_scan = cfg.n_layers - cfg.first_dense_layers
     p: Params = {
         "embed": embed_params(draw, cfg.padded_vocab, cfg.d_model,

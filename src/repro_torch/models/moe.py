@@ -58,13 +58,37 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def capacity(cfg, n: int) -> int:
+    """Slots per expert for ``n`` tokens: ceil(n k / E * capacity_factor)."""
+    return int(np.ceil(n * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+
+
+def dispatch(flat_e: torch.Tensor, e: int, cap: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each (token, choice) entry's rank among its expert's entries in
+    flat order, and whether it keeps a slot (``rank < cap``); the rest
+    are dropped."""
+    n_k = flat_e.shape[0]
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    # Counts by index_add, not bincount: the same integers, but bincount
+    # reads the maximum on the host first (a sync on a card) and has no
+    # meta kernel, so the dry run could not trace the MoE archs.
+    counts = sorted_e.new_zeros(e).index_add(0, sorted_e,
+                                             torch.ones_like(sorted_e))
+    starts = torch.cumsum(counts, 0) - counts
+    rank_sorted = torch.arange(n_k, device=flat_e.device) - starts[sorted_e]
+    rank = rank_sorted.new_zeros(n_k).scatter(0, order, rank_sorted)
+    return rank, rank < cap
+
+
 def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """x: [B, T, D] -> (y, aux) with aux = {load_balance_loss, z_loss}."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(b * t, d)
     n = b * t
-    cap = int(np.ceil(n * k / e * cfg.capacity_factor))
+    cap = capacity(cfg, n)
     dev = x.device
 
     logits = torch.einsum("nd,de->ne", xf, p["router"].to(x.dtype))
@@ -75,17 +99,7 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
 
     flat_e = top_e.reshape(-1)                                   # [N*k]
     token_of = torch.arange(n, device=dev).repeat_interleave(k)
-    order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
-    # Counts by index_add, not bincount: the same integers, but bincount
-    # reads the maximum on the host first (a sync on a card) and has no
-    # meta kernel, so the dry run could not trace the MoE archs.
-    counts = sorted_e.new_zeros(e).index_add(0, sorted_e,
-                                             torch.ones_like(sorted_e))
-    starts = torch.cumsum(counts, 0) - counts
-    rank_sorted = torch.arange(n * k, device=dev) - starts[sorted_e]
-    rank = rank_sorted.new_zeros(n * k).scatter(0, order, rank_sorted)
-    ok = rank < cap
+    rank, ok = dispatch(flat_e, e, cap)
     # Dropped entries go to slot 0 with a zero contribution.
     slot = torch.where(ok, flat_e * cap + rank, 0)
     okf = ok.to(x.dtype)[:, None]

@@ -9,28 +9,38 @@ differences applied, and exits 1 on any other drift:
 
 * the port's names for where it computes (:data:`EXTRA`):
   ``EngineConfig.device``, the torch device the engine computes on
-  (``"cuda"`` unless the caller asks for the CPU), and
-  ``Device.torch_device``, that device as a ``torch.device``;
+  (``"cuda"`` unless the caller asks for the CPU),
+  ``Device.torch_device``, that device as a ``torch.device``, and
+  ``select_backend``'s required ``device`` keyword: a backend's
+  availability depends on the device, and the port does not fall back;
+* the parameters of the functions in :data:`SIGNATURES`, read from the
+  reference's source with ``ast``;
 * the built-in fused backends carry the port's names
   (:data:`RENAMED_BACKENDS`): the TPU's Pallas pipeline is the CUDA
   kernels' pipeline, the CPU word-domain evaluator runs in torch.
 
-The snapshot file is read as a file; nothing of the reference package is
-imported.
+The snapshot file and the reference's sources are read as files; nothing
+of the reference package is imported.
 
 Usage: ``PYTHONPATH=src python tools/check_api_torch.py [--print]``
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import importlib.util
+import inspect
 import pathlib
 import sys
 import types
 
 REFERENCE = pathlib.Path(__file__).resolve().parent / "check_api.py"
-EXTRA = {"EngineConfig": ["device"], "Device": ["torch_device"]}
+# function of the surface -> the reference's module that defines it
+SIGNATURES = {"select_backend": REFERENCE.parents[1] / "src" / "repro"
+              / "backends.py"}
+EXTRA = {"EngineConfig": ["device"], "Device": ["torch_device"],
+         "select_backend": ["device"]}
 RENAMED_BACKENDS = {"pallas-tpu": "vertical-cuda",
                     "pallas-tpu-64": "vertical-cuda-64",
                     "words-cpu": "words-torch",
@@ -45,9 +55,20 @@ def reference_snapshot():
     return mod
 
 
+def reference_parameters(path: pathlib.Path, name: str) -> list[str]:
+    """The parameter names of the function ``name`` defined at the top of
+    the module at ``path``, from its source."""
+    fn = next(node for node in ast.parse(path.read_text()).body
+              if isinstance(node, ast.FunctionDef) and node.name == name)
+    a = fn.args
+    return sorted(x.arg for x in a.posonlyargs + a.args + a.kwonlyargs)
+
+
 def expected(ref) -> dict[str, list[str]]:
     """The reference's ``EXPECTED`` with the port's differences applied."""
     want = {key: list(names) for key, names in ref.EXPECTED.items()}
+    for name, path in SIGNATURES.items():
+        want[name] = reference_parameters(path, name)
     for key, names in EXTRA.items():
         want[key] = want[key] + names
     want["backends"] = [RENAMED_BACKENDS.get(n, n) for n in want["backends"]]
@@ -73,6 +94,8 @@ def actual_surface(ref) -> dict[str, list[str]]:
         "EngineConfig": sorted(f.name for f in
                                dataclasses.fields(pum.EngineConfig)),
         "backends": sorted(pum.available_backends()),
+        **{name: sorted(inspect.signature(getattr(pum, name)).parameters)
+           for name in SIGNATURES},
     }
 
 
