@@ -1104,27 +1104,32 @@ def profile_ticks(step, n_ticks: int, wall_ms: float | None = None
 
 
 def lm_inputs(cfg, rng, b: int, t: int, device,
-              frames: int | None = None) -> dict:
-    """A seeded batch for ``cfg`` (``frames`` audio frames, ``t`` unless
-    given, and patches for the stub frontends) on ``device``."""
+              prefix: int | None = None) -> dict:
+    """A seeded batch for ``cfg`` on ``device``: ``t`` tokens, and for the
+    stub frontends ``prefix`` audio frames (``t`` unless given) or
+    patches (``n_frontend_tokens`` unless given), normal with scale
+    0.02."""
     import numpy as np
     import torch
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int64))}
     if cfg.encoder_decoder:
         batch["frames"] = torch.as_tensor(rng.standard_normal(
-            (b, frames or t, cfg.d_model), np.float32) * 0.02)
+            (b, prefix or t, cfg.d_model), np.float32) * 0.02)
     if cfg.frontend == "vision":
         batch["patches"] = torch.as_tensor(rng.standard_normal(
-            (b, cfg.n_frontend_tokens, cfg.d_model), np.float32) * 0.02)
+            (b, prefix or cfg.n_frontend_tokens, cfg.d_model),
+            np.float32) * 0.02)
     return {k: v.to(device) for k, v in batch.items()}
 
 
 def lm_parity(cfg, dev_params, cpu_params, batch, device, steps: int,
-              forward: bool) -> tuple[dict, bool]:
+              forward: bool, keep: list | None = None) -> tuple[dict, bool]:
     """Forward, prefill and ``steps`` greedy decode steps of ``cfg`` with
-    the same parameters on ``device`` and on the CPU; returns the max
-    abs logit error per stage and whether the greedy tokens agreed."""
+    the same parameters on ``device`` and on the CPU (positions after the
+    batch's patch prefix, if any); returns the max abs logit error per
+    stage and whether the greedy tokens agreed. ``keep``, when given,
+    takes the device's prefill and decode logits, on the host."""
     import torch
     from repro_torch.models import model as lm
 
@@ -1132,8 +1137,9 @@ def lm_parity(cfg, dev_params, cpu_params, batch, device, steps: int,
         return {k: v.cpu() for k, v in tree.items()}
 
     b = batch["tokens"].shape[0]
-    extra = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    extra = batch["patches"].shape[1] if "patches" in batch else 0
     t = batch["tokens"].shape[1] + extra
+    keep = [] if keep is None else keep
     errs = {}
     with torch.no_grad():
         if forward:
@@ -1143,6 +1149,7 @@ def lm_parity(cfg, dev_params, cpu_params, batch, device, steps: int,
         got, gc, gm = lm.prefill(cfg, dev_params, batch, t + steps)
         want, wc, wm = lm.prefill(cfg, cpu_params, host(batch), t + steps)
         errs["prefill"] = float((got.cpu() - want).abs().max())
+        keep.append(got.cpu())
         same = True
         for i in range(steps):
             gt = got[:, :cfg.vocab_size].argmax(-1)
@@ -1154,6 +1161,7 @@ def lm_parity(cfg, dev_params, cpu_params, batch, device, steps: int,
             want, wc = lm.decode_step(cfg, cpu_params, wc, wt, pos,
                                       memory=wm)
             errs[f"decode{i}"] = float((got.cpu() - want).abs().max())
+            keep.append(got.cpu())
     return errs, same
 
 
@@ -1403,6 +1411,10 @@ TRAIN_ARCH = "qwen1.5-0.5b"      # launch/train.py's documented example
 TRAIN_F32_LOSS_RTOL = 1e-5   # float32 loss, card vs CPU, relative
 TRAIN_F32_GRAD_TOL = 1e-3    # float32 gradient leaf, card vs CPU, of max|g|
 RESUME_LOSS_RTOL = 1e-4      # resumed against uninterrupted step-5 loss
+# The float32 card-against-CPU train step runs qwen1.5-0.5b at its full
+# width cut to 4 of 24 layers, for time: at 24 layers it took 51.1 s of
+# the script's (PERF.md section 4).
+TRAIN_F32_LAYERS = 4
 
 
 def tree_errs(got, want) -> dict:
@@ -1472,8 +1484,9 @@ def lm_train(device: str, build, seed: int) -> dict:
        ``nu``, ``err``): restored equal bit for bit (free disk checked
        first);
     e. float32 on ``device`` against the CPU: one train step at full width
-       on batch 1 x 17 tokens (loss within ``TRAIN_F32_LOSS_RTOL``, each
-       gradient leaf within ``TRAIN_F32_GRAD_TOL`` of its max|g|), then
+       and :data:`TRAIN_F32_LAYERS` layers on batch 1 x 17 tokens (loss
+       within ``TRAIN_F32_LOSS_RTOL``, each gradient leaf within
+       ``TRAIN_F32_GRAD_TOL`` of its max|g|), then
        the 10 smoke configs one step each with int8 compression off and
        on (the same bounds; ``err`` within one int8 quantum more);
     f. the launcher: ``--smoke --steps 12 --ckpt-every 5
@@ -1810,12 +1823,14 @@ def lm_train(device: str, build, seed: int) -> dict:
         return l_err, g_err, e_err
 
     t = time.perf_counter()
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=min(
+        TRAIN_F32_LAYERS, cfg.n_layers))
     cpu_p = lm.init_params(cfg32, 0, device="cpu")
     batch = {"tokens": np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, 17)).astype(np.int32)}
     l_err, g_err, _ = f32_step(cfg32, cpu_p, batch, False)
-    print(f"train {cfg.name} float32, {device} against CPU (one train step, "
+    print(f"train {cfg.name} float32 at {cfg32.n_layers} of {cfg.n_layers} "
+          f"layers, {device} against CPU (one train step, "
           f"1 x 17 tokens): loss rel error {l_err:.2e} (bound "
           f"{TRAIN_F32_LOSS_RTOL:g}), worst gradient leaf {g_err:.2e} of its "
           f"max|g| (bound {TRAIN_F32_GRAD_TOL:g}), "
@@ -2041,14 +2056,16 @@ def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
     shape's sequence length kept and its global batch cut as ``cuts``
     says ((shape, batch) pairs, or (shape, batch, layers) where the depth
     is cut too: the cell is built from, and bounded by, the config with
-    that many layers): the tensors given to the cell are the dry
-    run's ``meta`` arguments made real, their bytes equal to its
+    that many layers, in each stack of an encoder-decoder): the tensors
+    given to the cell are the dry run's ``meta`` arguments made real,
+    their bytes equal to its
     ``argument_size_in_bytes`` on the 1x1 mesh, and the outputs finite;
     prints each cell's cold and warm wall (each ending in a read-back),
     peak memory, the dry run's counted FLOPs at the cut shape, the
     roofline's one-card bound and wall / bound, and on the card one
     profiled call (device busy, idle share, device ops). On the CPU it
-    rehearses at the smoke config with sequences of 16."""
+    rehearses at the smoke config with sequences of 16 (after a VLM's
+    patch prefix)."""
     import torch
     from repro_torch.config.base import (LM_SHAPES, ShapeConfig, get_config,
                                          get_smoke_config)
@@ -2070,13 +2087,18 @@ def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
     try:
         for name, cut, *depth in cuts:
             t_cell = time.perf_counter()
-            # the rehearsal builds the smoke config through the same path
+            # the rehearsal builds the smoke config through the same path;
+            # an encoder-decoder's cut applies to both of its stacks
             cfg = full if not depth or depth[0] is None else \
                 dataclasses.replace(full, n_layers=min(depth[0],
-                                                       full.n_layers))
+                                                       full.n_layers),
+                                    n_encoder_layers=min(
+                                        depth[0], full.n_encoder_layers))
             steps.get_config = lambda arch, cfg=cfg: cfg
             g = LM_SHAPES[name]
-            seq = g.seq_len if on_card else 16
+            # the rehearsal: 16 tokens after a smoke VLM's patch prefix
+            seq = g.seq_len if on_card else 16 + (
+                cfg.n_frontend_tokens if cfg.frontend == "vision" else 0)
             shape = ShapeConfig(name, g.kind, seq, cut)
             cell = steps.build_cell(arch, shape, mesh)
             rec = dryrun.trace_cell(cell, mesh)
@@ -2109,7 +2131,10 @@ def run_cells(arch: str, cuts, device: str, seed: int) -> dict:
                   f"{name}: non-finite outputs")
             bound = one_card_bound(roofline, cfg, name, cut)
             size = "full width" if on_card else "smoke"
-            if cfg.n_layers != full.n_layers:
+            if cfg.encoder_decoder and cfg.n_layers != full.n_layers:
+                size += (f", {cfg.n_encoder_layers} + {cfg.n_layers} of "
+                         f"{full.n_encoder_layers} + {full.n_layers} layers")
+            elif cfg.n_layers != full.n_layers:
                 size += f", {cfg.n_layers} of {full.n_layers} layers"
             print(f"{name} cut to batch {cut} x {seq} ({g.global_batch} "
                   f"global), {arch} {size}: {given:,} argument "
@@ -2302,14 +2327,20 @@ SHARDED_MAX_REL = {"logits": 2.0 ** -5, "caches": 2.0 ** -5,
 # only: on one rank nothing is summed over ranks)
 SHARDED_FAULTS = {"grad_sums_kept": ("train_4k",),
                   "partial_sums_kept": ("decode_32k",)}
+# On one card (the (1, 1) mesh) the cells run qwen1.5-0.5b at its full
+# width cut to 4 of 24 layers, for time: at 24 layers the phase took
+# 115.6 s of the script's, 52.0 s of it the 1-bit path on the gradients
+# (PERF.md section 4). Across cards the depth is kept.
+SHARDED_ONE_CARD_LAYERS = 4
 
 
 def lm_cells_sharded(device: str, build, seed: int,
                      ranks: int | None = None) -> dict:
     """Phase 23 (``lm_cells_sharded``): qwen1.5-0.5b's ``train_4k``,
     ``prefill_32k`` and ``decode_32k`` cells executed across one rank per
-    visible card (``ranks`` CPU ranks on ``gloo`` when ``device`` is the
-    CPU, at the smoke config and sequence length 16) as DTensors under
+    visible card (on one card at :data:`SHARDED_ONE_CARD_LAYERS` layers;
+    ``ranks`` CPU ranks on ``gloo`` when ``device`` is the CPU, at the
+    smoke config and sequence length 16) as DTensors under
     their shardings, through ``launch.steps.Cell.run`` over
     ``make_test_mesh(n)``; each global batch is phase 22's one-card cut
     times the data axis. See :func:`sharded_cells_rank` for what each rank
@@ -2572,7 +2603,10 @@ def sharded_cells_rank(rank: int, world: int, device: str, seed: int,
     dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
     cfg = get_config(LAUNCH_ARCH) if on_card \
         else get_smoke_config(LAUNCH_ARCH)
-    if not on_card:  # rehearsal: the smoke config through the same builder
+    if on_card and world == 1:
+        cfg = dataclasses.replace(cfg, n_layers=SHARDED_ONE_CARD_LAYERS)
+    if not on_card or world == 1:
+        # the rehearsal's smoke config, one card's cut: through build_cell
         steps.get_config = lambda arch: cfg
     mesh = make_test_mesh(world) if on_card \
         else make_test_mesh(devices=["cpu"] * world)
@@ -2910,12 +2944,13 @@ ENCDEC_FRAMES = 48   # float32 check: a memory longer than the 16 tokens
 # AdamW moments: 36.5 GiB; all 48 would need ~420 GiB); its prefill_32k
 # 4 layers for time: all 48 would fit at ~70 GiB but take ~18 s a call
 # (8 layers take 3.0 s).
-# seamless-m4t-large-v2 keeps its 24 + 24 layers; its batches are cut to
-# fit 80 GB (PERF.md section 4).
+# seamless-m4t-large-v2's batches are cut to fit 80 GB (PERF.md section
+# 4); its train_4k and decode_32k keep their 24 + 24 layers, its
+# prefill_32k runs 8 + 8 for time (at 24 + 24, 9.4 s a call).
 MOE_ENCDEC_CUTS = {
     MOE_ARCH: (("train_4k", 2, 4), ("prefill_32k", 1, 4),
                ("decode_32k", 1, None)),
-    ENCDEC_ARCH: (("train_4k", 4, None), ("prefill_32k", 1, None),
+    ENCDEC_ARCH: (("train_4k", 4, None), ("prefill_32k", 1, 8),
                   ("decode_32k", 16, None)),
 }
 
@@ -2966,6 +3001,23 @@ def moe_route_tap(moe_mod, cfg, log: list):
         log.append((idx.cpu(), ok.cpu()))
         return w, idx
     return tapped
+
+
+def route_blocks(routes: list, n_moe: int, stages: int) -> tuple:
+    """Read :func:`moe_route_tap`'s log of one :func:`lm_parity` run,
+    which runs each stage on the device, then on the CPU (blocks of one
+    router call per MoE layer, alternating): whether the device's expert
+    ids and drop masks equal the CPU's at all ``stages`` stages, and the
+    (token, choice) entries dropped and routed at each device stage."""
+    import torch
+    blocks = [routes[i:i + n_moe] for i in range(0, len(routes), n_moe)]
+    card, host = blocks[0::2], blocks[1::2]
+    equal = len(card) == len(host) == stages and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for ca, hb in zip(card, host) for a, b in zip(ca, hb))
+    dropped = [sum(int((~ok).sum()) for _, ok in blk) for blk in card]
+    entries = [sum(ok.numel() for _, ok in blk) for blk in card]
+    return equal, dropped, entries
 
 
 def lm_moe_encdec(device: str, build, seed: int) -> dict:
@@ -3056,16 +3108,8 @@ def moe_arch(device: str, build, seed: int) -> dict:
         moe_mod.top_k = chosen
     del params, cpu_params
     err = max(errs.values())
-    # lm_parity runs each stage on the device, then on the CPU: blocks of
-    # one router call per MoE layer, alternating.
     n_moe = cfg32.n_layers - cfg32.first_dense_layers
-    blocks = [routes[i:i + n_moe] for i in range(0, len(routes), n_moe)]
-    card, host = blocks[0::2], blocks[1::2]
-    routes_equal = len(card) == len(host) == 5 and all(
-        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-        for ca, hb in zip(card, host) for a, b in zip(ca, hb))
-    dropped = [sum(int((~ok).sum()) for _, ok in blk) for blk in card]
-    entries = [sum(ok.numel() for _, ok in blk) for blk in card]
+    routes_equal, dropped, entries = route_blocks(routes, n_moe, 5)
     print(f"{arch} float32 at {cfg32.n_layers} layers, {device} against "
           f"CPU (prefill 2 x 16 tokens, 4 decode steps): max abs logit "
           f"error {err:.3e} (bound {SERVE_F32_TOL:g}), greedy tokens "
@@ -3078,7 +3122,7 @@ def moe_arch(device: str, build, seed: int) -> dict:
           f"{time.perf_counter() - t:.1f} s")
     check(err <= SERVE_F32_TOL and same and routes_equal,
           f"{arch} float32 against the CPU: {errs}, tokens equal {same}, "
-          f"routes equal {routes_equal} ({len(card)}/{len(host)} stages)")
+          f"routes equal {routes_equal} ({len(routes)} router calls)")
     out.update(f32_err=err, dropped=dropped)
     _free(on_card)
     stamp("b")
@@ -3089,21 +3133,25 @@ def moe_arch(device: str, build, seed: int) -> dict:
     return out
 
 
-def encdec_serve(cfg, params, dev, seed: int, tag: str) -> dict:
-    """Greedy serving of an encoder-decoder through ``prefill`` and
-    ``decode_step`` with the memory (``ServeEngine`` passes no frames, in
-    the reference as in the port): 4 sequences of ``n_frontend_tokens``
-    frames (normal, 0.02) and 16-token prompts from ``default_rng(seed)``,
-    16 greedy decode steps after the prefill's token, run twice; the two
-    token streams are identical. On the card, 8 decode steps at the last
-    position are profiled."""
+def prefix_serve(cfg, params, dev, seed: int, tag: str) -> dict:
+    """Greedy serving of a model with a frontend prefix through
+    ``prefill`` and ``decode_step`` (``ServeEngine`` passes no frames or
+    patches, in the reference as in the port): 4 sequences of
+    ``n_frontend_tokens`` audio frames (the encoder's memory) or image
+    patches (ahead of the prompt), normal with scale 0.02, and 16-token
+    prompts from ``default_rng(seed)``, 16 greedy decode steps after the
+    prefill's token, run twice; the two token streams are identical. On
+    the card, 8 decode steps at the last position are profiled."""
     import numpy as np
     import torch
     from repro_torch.models import model as lm
     on_card = dev.type == "cuda"
     b, t, steps = 4, 16, 16
     batch = lm_inputs(cfg, np.random.default_rng(seed), b, t, dev,
-                      frames=cfg.n_frontend_tokens)
+                      prefix=cfg.n_frontend_tokens)
+    kind = "frames" if cfg.encoder_decoder else "patches"
+    # a patch prefix takes positions ahead of the prompt
+    t0_pos = t + (cfg.n_frontend_tokens if kind == "patches" else 0)
 
     def sync():
         if on_card:
@@ -3114,12 +3162,13 @@ def encdec_serve(cfg, params, dev, seed: int, tag: str) -> dict:
         t0 = time.perf_counter()
         with torch.no_grad():
             logits, caches, memory = lm.prefill(cfg, params, batch,
-                                                t + steps)
+                                                t0_pos + steps)
             tok = logits[:, :cfg.vocab_size].argmax(-1)
             toks = [tok.cpu()]
             t1 = time.perf_counter()
             for i in range(steps):
-                pos = torch.full((b,), t + i, dtype=torch.long, device=dev)
+                pos = torch.full((b,), t0_pos + i, dtype=torch.long,
+                                 device=dev)
                 logits, caches = lm.decode_step(cfg, params, caches, tok,
                                                 pos, memory=memory)
                 tok = logits[:, :cfg.vocab_size].argmax(-1)
@@ -3133,7 +3182,7 @@ def encdec_serve(cfg, params, dev, seed: int, tag: str) -> dict:
     streams, prefill_s, step_s, wall, (caches, memory, tok) = runs[1]
     out = {"prefill_s": prefill_s, "decode_step_ms": step_s * 1e3,
            "tok_s": b * (steps + 1) / wall, "streams_equal": same}
-    print(f"{tag}: {b} sequences x {cfg.n_frontend_tokens} frames + "
+    print(f"{tag}: {b} sequences x {cfg.n_frontend_tokens} {kind} + "
           f"{t}-token prompts, the prefill's token and {steps} greedy "
           f"decode steps each, run twice: "
           f"token streams {'identical' if same else 'DIFFER'}; warm run "
@@ -3143,7 +3192,7 @@ def encdec_serve(cfg, params, dev, seed: int, tag: str) -> dict:
     check(same and streams.shape == (b, steps + 1),
           f"{tag}: the two runs gave different tokens")
     if on_card:
-        pos = torch.full((b,), t + steps - 1, dtype=torch.long,
+        pos = torch.full((b,), t0_pos + steps - 1, dtype=torch.long,
                          device=dev)
 
         def step():
@@ -3168,7 +3217,7 @@ def encdec_arch(device: str, seed: int) -> dict:
 
     a. bfloat16 at full depth, the weights drawn in bfloat16, through
        ``prefill``/``decode_step`` with the encoder's memory
-       (:func:`encdec_serve`);
+       (:func:`prefix_serve`);
     b. float32 at full depth, the card against the CPU (:func:`lm_parity`:
        prefill 2 x 16 tokens over :data:`ENCDEC_FRAMES` frames, 4 decode
        steps carrying the memory, within ``SERVE_F32_TOL``, greedy tokens
@@ -3201,7 +3250,7 @@ def encdec_arch(device: str, seed: int) -> dict:
           f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, padded vocab "
           f"{cfg.padded_vocab}, {n_params:,} parameters drawn in bfloat16 "
           f"= count_params")
-    out = encdec_serve(cfg, params, dev, seed, f"{arch} serve")
+    out = prefix_serve(cfg, params, dev, seed, f"{arch} serve")
     del params
     _free(on_card)
     stamp("a")
@@ -3213,7 +3262,7 @@ def encdec_arch(device: str, seed: int) -> dict:
                             device=dev)
     cpu_params = tree_map(lambda x: x.cpu(), params)
     batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev,
-                      frames=ENCDEC_FRAMES)
+                      prefix=ENCDEC_FRAMES)
     errs, same = lm_parity(cfg32, params, cpu_params, batch, dev, steps=4,
                            forward=False)
     del params, cpu_params
@@ -3235,12 +3284,266 @@ def encdec_arch(device: str, seed: int) -> dict:
     return out
 
 
-ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic", "lm_moe_encdec")
+VLM_ARCH = "llava-next-mistral-7b"   # the vision-language family
+MLA_ARCH = "deepseek-v2-236b"        # the MLA + MoE family
+VLM_F32_LAYERS = 4     # float32 check: 4 of 32 layers, 4.25 GiB
+VLM_F32_PATCHES = 64   # float32 check: a patch prefix the CPU runs in seconds
+MLA_SERVE_LAYERS = 8   # bfloat16 serving: the dense layer and 7 MoE, 54.4 GiB
+MLA_F32_LAYERS = 2     # float32 check: the dense layer and 1 MoE, 20.0 GiB
+# (shape, batch on one card, layers; None keeps the depth): each shape's
+# sequence length and the width are kept (PERF.md section 4).
+# llava-next-mistral-7b's decode_32k runs its 32 layers (13.5 GiB of
+# bfloat16 weights, 4.0 GiB of cache a sequence); its train_4k 8 layers
+# (float32 weights, gradients and AdamW moments: 30.0 GiB; 32 layers
+# would need 108 GiB); its prefill_32k 8 layers for time (~20 s a call
+# at 32). deepseek-v2-236b's decode_32k runs 8 layers (54.4 GiB of
+# weights, 0.30 GB of cache a sequence); its prefill_32k 2 layers (the
+# dense layer and 1 MoE); its train_4k its one dense layer (AdamW state
+# 20.7 GiB; with one MoE layer 79.9 GiB, more than the card holds) at 1
+# sequence: 1 peaked at 51.41 GiB, 2 ran out of the card's memory in
+# the backward of the dense 128-head attention.
+VLM_MLA_CUTS = {
+    VLM_ARCH: (("train_4k", 2, 8), ("prefill_32k", 1, 8),
+               ("decode_32k", 8, None)),
+    MLA_ARCH: (("train_4k", 1, 1), ("prefill_32k", 1, 2),
+               ("decode_32k", 16, 8)),
+}
+
+
+def lm_vlm_mla(device: str, build, seed: int) -> dict:
+    """Phase 26 (``lm_vlm_mla``) on ``device`` (``"cuda"`` on the card;
+    on the CPU it rehearses at each arch's smoke config):
+    :func:`vlm_arch` for llava-next-mistral-7b, then :func:`mla_arch`
+    for deepseek-v2-236b."""
+    import torch
+    if device != "cpu":
+        _free(True)  # earlier phases' closed engines hold tensors in cycles
+        print(f"phase 26 starts with "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    out = {VLM_ARCH: vlm_arch(device, build, seed)}
+    out[MLA_ARCH] = mla_arch(device, build, seed)
+    out["launches"] = {k: sum(out[a]["serve_launches"][k]
+                              for a in (VLM_ARCH, MLA_ARCH)) for k in K12}
+    return out
+
+
+def vlm_arch(device: str, build, seed: int) -> dict:
+    """Phase 26 for llava-next-mistral-7b (its full config on the card):
+
+    a. bfloat16 at full depth, the weights drawn in bfloat16, their count
+       equal to ``count_params``: text through ``ServeEngine`` three ways
+       (:func:`serve_three_ways`; it passes no patches, in the reference
+       as in the port), then the 2,880-patch prefix through
+       ``prefill``/``decode_step`` (:func:`prefix_serve`);
+    b. float32 at :data:`VLM_F32_LAYERS` layers, the card against the
+       CPU (:func:`lm_parity`: prefill 2 x (:data:`VLM_F32_PATCHES`
+       patches + 16 tokens) and 4 decode steps within ``SERVE_F32_TOL``,
+       greedy tokens equal);
+    c. its cells cut to :data:`VLM_MLA_CUTS` (:func:`run_cells`);
+    d. the launcher, ``python -m repro_torch.launch.serve --arch ARCH``,
+       in process (its float32 masters, 27 GiB, fit one card)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.config.base import get_config, get_smoke_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as lm
+    from repro_torch.models.tree import tree_leaves, tree_map
+    arch = VLM_ARCH
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are enabled: float32 checks would see TF32 error")
+    cfg = get_config(arch) if on_card else get_smoke_config(arch)
+    stamp = _stamper(f"26 {arch}")
+
+    # -- a. bf16 at full depth: text three ways, then the patch prefix -- #
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"{arch}: {n_params} parameters, count_params says "
+          f"{cfg.param_count()}")
+    print(f"{arch} ({cfg.name}): {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, padded vocab "
+          f"{cfg.padded_vocab}, {cfg.n_frontend_tokens} patch tokens, "
+          f"{n_params:,} parameters drawn in bfloat16 = count_params")
+    out = serve_three_ways(cfg, params, build, dev, f"{arch} serve")
+    out["prefix"] = prefix_serve(cfg, params, dev, seed,
+                                 f"{arch} serve with patches")
+    del params
+    _free(on_card)
+    stamp("a")
+
+    # -- b. float32 at a cut depth: the card against the CPU ------------ #
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=min(VLM_F32_LAYERS, cfg.n_layers))
+    t = time.perf_counter()
+    params = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    n_patch = VLM_F32_PATCHES if on_card else None
+    batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev,
+                      prefix=n_patch)
+    errs, same = lm_parity(cfg32, params, cpu_params, batch, dev, steps=4,
+                           forward=False)
+    del params, cpu_params
+    err = max(errs.values())
+    print(f"{arch} float32 at {cfg32.n_layers} layers, {device} against "
+          f"CPU (prefill 2 x ({batch['patches'].shape[1]} patches + 16 "
+          f"tokens), 4 decode steps): max abs logit error {err:.3e} (bound "
+          f"{SERVE_F32_TOL:g}), greedy tokens "
+          f"{'equal' if same else 'DIFFER'}, {time.perf_counter() - t:.1f} s")
+    check(err <= SERVE_F32_TOL and same,
+          f"{arch} float32 against the CPU: {errs}, tokens equal {same}")
+    out["f32_err"] = err
+    _free(on_card)
+    stamp("b")
+
+    # -- c. the cells on one card ---------------------------------------- #
+    out["cells"] = run_cells(arch, VLM_MLA_CUTS[arch], device, seed)
+    stamp("c")
+
+    # -- d. the launcher, as a user runs it ------------------------------ #
+    argv = ["--arch", arch, "--device", device]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(launch_serve.main(argv + ([] if on_card else ["--smoke"]))
+              == 0, f"{arch}: the launcher failed")
+    line = buf.getvalue().strip()
+    check(line.startswith(f"[serve] {arch}: 8 requests, 128 tokens"),
+          f"launcher printed {line!r}")
+    print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
+          f"{line}")
+    _free(on_card)
+    stamp("d")
+    return out
+
+
+def mla_arch(device: str, build, seed: int) -> dict:
+    """Phase 26 for deepseek-v2-236b (its width on the card, its depth
+    cut: 60 layers are 439 GiB in bfloat16):
+
+    a. bfloat16 at :data:`MLA_SERVE_LAYERS` layers, the weights drawn in
+       bfloat16 a layer slice at a time, their count equal to
+       ``count_params``, through ``ServeEngine`` three ways
+       (:func:`serve_three_ways`; MLA's absorbed decode);
+    b. float32 at :data:`MLA_F32_LAYERS` layers, the card against the
+       CPU (:func:`lm_parity`: prefill 2 x 16 tokens and 4 decode steps,
+       every router decision held by :func:`moe_route_tap`), decoding
+       once absorbed and once naive (``mla_absorbed_decode``): each
+       within ``SERVE_F32_TOL`` of the CPU in the same mode with equal
+       greedy tokens, and the card's two runs within ``SERVE_F32_TOL`` of
+       each other;
+    c. its cells cut to :data:`VLM_MLA_CUTS` (:func:`run_cells`).
+
+    No launcher run: ``launch/serve.py`` builds ``ServeEngine(cfg)``,
+    which would draw 878 GiB of float32 masters."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import get_config, get_smoke_config
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.tree import tree_leaves, tree_map
+    arch = MLA_ARCH
+    on_card = device != "cpu"
+    dev = torch.device(device)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are enabled: float32 checks would see TF32 error")
+    full = get_config(arch) if on_card else get_smoke_config(arch)
+    stamp = _stamper(f"26 {arch}")
+
+    # -- a. bf16 at a cut depth through ServeEngine, three ways ---------- #
+    cfg = dataclasses.replace(full, n_layers=min(MLA_SERVE_LAYERS,
+                                                 full.n_layers))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count() and all(
+        x.dtype == torch.bfloat16 for x in tree_leaves(params)),
+          f"{arch}: {n_params} parameters, count_params says "
+          f"{cfg.param_count()}")
+    print(f"{arch} ({cfg.name}): {cfg.n_layers} of {full.n_layers} layers "
+          f"({cfg.first_dense_layers} dense), d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, MLA kv_lora {cfg.kv_lora_rank} / q_lora "
+          f"{cfg.q_lora_rank} / nope {cfg.qk_nope_head_dim} / rope "
+          f"{cfg.qk_rope_head_dim} / v {cfg.v_head_dim}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + "
+          f"{cfg.n_shared_experts} shared of {cfg.moe_d_ff}, padded vocab "
+          f"{cfg.padded_vocab}, {n_params:,} parameters drawn in bfloat16 "
+          f"= count_params; "
+          + (f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+             f"allocated" if on_card else "on the CPU"))
+    out = serve_three_ways(cfg, params, build, dev, f"{arch} serve")
+    del params
+    _free(on_card)
+    stamp("a")
+
+    # -- b. float32 at a cut depth: the card against the CPU, two decodes #
+    cfg32 = dataclasses.replace(full, dtype="float32",
+                                n_layers=min(MLA_F32_LAYERS, full.n_layers))
+    t = time.perf_counter()
+    params = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev)
+    n_moe = cfg32.n_layers - cfg32.first_dense_layers
+    runs = {}
+    chosen = moe_mod.top_k
+    for absorbed in (True, False):
+        c = dataclasses.replace(cfg32, mla_absorbed_decode=absorbed)
+        routes: list = []
+        logits: list = []
+        moe_mod.top_k = moe_route_tap(moe_mod, c, routes)
+        try:
+            errs, same = lm_parity(c, params, cpu_params, batch, dev,
+                                   steps=4, forward=False, keep=logits)
+        finally:
+            moe_mod.top_k = chosen
+        runs[absorbed] = (errs, same, route_blocks(routes, n_moe, 5), logits)
+    del params, cpu_params
+    between = max(float((a - b).abs().max())
+                  for a, b in zip(runs[True][3], runs[False][3]))
+    for absorbed, (errs, same, (equal, dropped, entries), _) in runs.items():
+        err = max(errs.values())
+        print(f"{arch} float32 at {cfg32.n_layers} layers, "
+              f"{'absorbed' if absorbed else 'naive'} decode, {device} "
+              f"against CPU (prefill 2 x 16 tokens, 4 decode steps): max "
+              f"abs logit error {err:.3e} (bound {SERVE_F32_TOL:g}), greedy "
+              f"tokens {'equal' if same else 'DIFFER'}; router decisions "
+              f"of {n_moe} MoE layer(s) at the prefill and 4 decode steps "
+              f"(capacity {moe_mod.capacity(cfg32, 32)} and "
+              f"{moe_mod.capacity(cfg32, 2)} an expert): expert ids and "
+              f"drop masks {'identical' if equal else 'DIFFER'}, dropped "
+              f"{dropped} of {entries} (token, choice) entries")
+        check(err <= SERVE_F32_TOL and same and equal,
+              f"{arch} float32 against the CPU (absorbed {absorbed}): "
+              f"{errs}, tokens equal {same}, routes equal {equal}")
+    print(f"{arch} float32 on {device}: absorbed against naive decode, max "
+          f"abs logit error {between:.3e} over the prefill and 4 steps "
+          f"(bound {SERVE_F32_TOL:g}); {time.perf_counter() - t:.1f} s")
+    check(between <= SERVE_F32_TOL,
+          f"{arch}: absorbed and naive decodes differ by {between}")
+    out.update(f32_err=max(max(r[0].values()) for r in runs.values()),
+               f32_absorbed_vs_naive=between, dropped=runs[True][2][1])
+    _free(on_card)
+    stamp("b")
+
+    # -- c. the cells on one card ---------------------------------------- #
+    out["cells"] = run_cells(arch, VLM_MLA_CUTS[arch], device, seed)
+    stamp("c")
+    return out
+
+
+ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic", "lm_moe_encdec",
+         "lm_vlm_mla")
 
 
 def run_alone(argv: list[str]) -> int:
     """``--only NAME``: one phase of :data:`ALONE` by itself (phases 20,
-    24 and 25 on one card; phase 23 over every visible card, its fault
+    24, 25 and 26 on one card; phase 23 over every visible card, its fault
     controls included when there are several), the kernels it launches
     built first; no result line."""
     if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ALONE:
@@ -3252,7 +3555,7 @@ def run_alone(argv: list[str]) -> int:
     from repro_torch.pum import capture as capture_mod
     from repro_torch.serve.engine import ServeEngine
     t = time.perf_counter()
-    if argv[1] in ("lm_serve", "lm_subquadratic", "lm_moe_encdec"):
+    if argv[1] != "lm_cells_sharded":
         programs = programs_of(capture_mod, lambda: ServeEngine(
             get_smoke_config(SERVE_ARCH), max_batch=4, max_len=256,
             eos_id=-1, device="cpu").close())
@@ -3262,8 +3565,10 @@ def run_alone(argv: list[str]) -> int:
             lm_serve("cuda", _build, programs[0], SEED)
         elif argv[1] == "lm_subquadratic":
             lm_subquadratic("cuda", _build, SEED)
-        else:
+        elif argv[1] == "lm_moe_encdec":
             lm_moe_encdec("cuda", _build, SEED)
+        else:
+            lm_vlm_mla("cuda", _build, SEED)
     else:
         _build.build_many([bit_transpose.build_item()])
         lm_cells_sharded("cuda", _build, SEED)
@@ -4227,7 +4532,11 @@ def main() -> int:
     moe_encdec = lm_moe_encdec("cuda", _build, SEED)
     clock.stamp("25")
 
-    # -- 26. results ----------------------------------------------------- #
+    # -- 26. the VLM and MLA families at full width --------------------- #
+    vlm_mla = lm_vlm_mla("cuda", _build, SEED)
+    clock.stamp("26")
+
+    # -- 27. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -4243,10 +4552,12 @@ def main() -> int:
          + shard["shard_launches"]["bit_transpose32"]
          + sharded["launches"]["bit_transpose32"]
          + subq["launches"]["bit_transpose32"]
-         + moe_encdec["launches"]["bit_transpose32"],
+         + moe_encdec["launches"]["bit_transpose32"]
+         + vlm_mla["launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
          "launches_subquadratic": subq["launches"]["bit_transpose32"],
          "launches_moe_encdec": moe_encdec["launches"]["bit_transpose32"],
+         "launches_vlm_mla": vlm_mla["launches"]["bit_transpose32"],
          "launches_cells_sharded": sharded["launches"]["bit_transpose32"],
          "launches_shard_words": shard["shard_launches"]["bit_transpose32"],
          "launches_serve": serve["serve_launches"]["bit_transpose32"],
@@ -4275,10 +4586,12 @@ def main() -> int:
          + shard["shard_launches"]["run_program_cuda"]
          + sharded["launches"]["run_program_cuda"]
          + subq["launches"]["run_program_cuda"]
-         + moe_encdec["launches"]["run_program_cuda"],
+         + moe_encdec["launches"]["run_program_cuda"]
+         + vlm_mla["launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
          "launches_subquadratic": subq["launches"]["run_program_cuda"],
          "launches_moe_encdec": moe_encdec["launches"]["run_program_cuda"],
+         "launches_vlm_mla": vlm_mla["launches"]["run_program_cuda"],
          "launches_cells_sharded": sharded["launches"]["run_program_cuda"],
          "launches_shard_words": shard["shard_launches"]["run_program_cuda"],
          "launches_serve": serve["serve_launches"]["run_program_cuda"],

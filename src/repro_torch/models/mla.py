@@ -3,9 +3,10 @@
 The port's copy of ``repro.models.mla``: K/V compressed into a
 ``kv_lora_rank`` latent plus one shared RoPE key head; train/prefill
 decompress to per-head K/V (chunked online softmax over latent blocks
-when long, a Python loop in the reference's block order); decode scores
-against the cached latent directly (absorbed) or decompresses it each
-step (naive). Decode writes the caches in place.
+when long, a Python loop in the reference's block order, a tile of
+queries at a time); decode scores against the cached latent directly
+(absorbed) or decompresses it each step (naive). Decode writes the
+caches in place.
 """
 
 from __future__ import annotations
@@ -59,23 +60,39 @@ def _kv_latent(cfg, p, x, positions):
 
 CHUNKED_THRESHOLD = 8192
 KV_BLOCK = 1024
+Q_TILE = 4096
 
 
-def _mla_chunked(cfg, p, q_nope, q_rope, c_kv, k_rope, kv_block=KV_BLOCK):
-    """Online softmax over latent KV blocks, decompressing K/V per block."""
-    b, t, h, dn = q_nope.shape
+def _mla_chunked(cfg, p, q_nope, q_rope, c_kv, k_rope, kv_block=KV_BLOCK,
+                 q_tile=Q_TILE):
+    """Online softmax over latent KV blocks, decompressing K/V per block,
+    ``q_tile`` queries at a time: each tile goes through every block in
+    the reference's order with the same mask, and its ``[B, H, q_tile,
+    kv_block]`` logits bound the temporaries (untiled, 32,768 queries of
+    128 heads make 17 GB of float32 logits a block)."""
+    t = q_nope.shape[1]
     s = c_kv.shape[1]
-    scale = 1.0 / np.sqrt(dn + cfg.qk_rope_head_dim)
-    dv = cfg.v_head_dim
+    scale = 1.0 / np.sqrt(q_nope.shape[-1] + cfg.qk_rope_head_dim)
     if s % kv_block:
         pad = kv_block - s % kv_block
         c_kv = torch.nn.functional.pad(c_kv, (0, 0, 0, pad))
         k_rope = torch.nn.functional.pad(k_rope, (0, 0, 0, pad))
-    nb = c_kv.shape[1] // kv_block
     qn = (q_nope.float() * scale).to(q_nope.dtype)
     qr = (q_rope.float() * scale).to(q_rope.dtype)
-    dev = q_nope.device
-    qpos = torch.arange(t, device=dev)
+    outs = [_mla_tile(cfg, p, qn[:, i:i + q_tile], qr[:, i:i + q_tile], i,
+                      c_kv, k_rope, s, kv_block)
+            for i in range(0, t, q_tile)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _mla_tile(cfg, p, qn, qr, q0, c_kv, k_rope, s, kv_block):
+    """One query tile (positions ``q0`` on, pre-scaled) of
+    :func:`_mla_chunked` over every block of the padded latent."""
+    b, t, h, _ = qn.shape
+    dv = cfg.v_head_dim
+    nb = c_kv.shape[1] // kv_block
+    dev = qn.device
+    qpos = q0 + torch.arange(t, device=dev)
     m = torch.full((b, h, t), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, h, t, dv), dtype=torch.float32, device=dev)
@@ -99,7 +116,7 @@ def _mla_chunked(cfg, p, q_nope, q_rope, c_kv, k_rope, kv_block=KV_BLOCK):
         acc = acc * sc[..., None] + torch.einsum(
             "bhts,bshk->bhtk", pr.to(v_blk.dtype), v_blk).float()
         m = m_new
-    out = (acc / torch.clamp(l[..., None], min=1e-30)).to(q_nope.dtype)
+    out = (acc / torch.clamp(l[..., None], min=1e-30)).to(qn.dtype)
     return torch.movedim(out, 1, 2)  # [B,T,H,dv]
 
 

@@ -540,7 +540,11 @@ def prefill(cfg, params: Params, batch: dict, max_len: int):
             x, c = _prefill_layer(cfg, lp, cfg.moe, x, positions, w0,
                                   max_len)
             per_layer.append(c)
-        caches = {"dense": dense, "stack": _stack_trees(per_layer)}
+        # No scanned layer (a MoE config cut to its dense layers): the
+        # reference's scan over the empty stack gives leaves of length 0.
+        stack = _stack_trees(per_layer) if per_layer else _one_layer_cache(
+            cfg, b, max_len, w0, x.dtype, x.device, lead=(0,))
+        caches = {"dense": dense, "stack": stack}
     else:
         caches = []
         for i in range(cfg.n_layers):

@@ -19,7 +19,7 @@ its table, and the ``hypothesis`` fallback — and so do the SSM prefill
 state's closed form, the ``quickstart``, ``coldboot_defense`` and
 ``serve_llm`` examples; ``tools/check_api_torch.py`` imports neither
 (``tests/test_torch_check_api.py`` runs it with both unimportable), nor
-does ``tools/hymba_prefill_repro.py``."""
+do ``tools/hymba_prefill_repro.py`` and ``tools/cells_fit.py``."""
 
 from __future__ import annotations
 
@@ -46,11 +46,13 @@ def _imports(path: pathlib.Path) -> list[str]:
 
 def test_no_jax_or_reference_imports():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "check_api_torch.py",
-              ROOT / "tools" / "hymba_prefill_repro.py"]
+    tools = [ROOT / "chip_smoke.py", ROOT / "tools" / "check_api_torch.py",
+             ROOT / "tools" / "hymba_prefill_repro.py",
+             ROOT / "tools" / "cells_fit.py"]
     assert len(files) > 10
     packages = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
-                for p in files[:-3]}
+                for p in files}
+    files += tools
     assert {"config", "configs", "models", "serve", "launch",
             "distributed", "train", "data", "checkpoint"} <= packages
     names = {p.relative_to(ROOT).as_posix() for p in files}
@@ -68,7 +70,8 @@ def test_no_jax_or_reference_imports():
             "src/repro_torch/examples/coldboot_defense.py",
             "src/repro_torch/examples/serve_llm.py",
             "tools/check_api_torch.py",
-            "tools/hymba_prefill_repro.py"} <= names
+            "tools/hymba_prefill_repro.py",
+            "tools/cells_fit.py"} <= names
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
