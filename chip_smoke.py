@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only lm_serve|lm_cells_sharded|lm_subquadratic
+    python3 chip_smoke.py --only lm_moe_encdec|lm_vlm_mla|figures
 
 Run from the root of a checkout on a host with one CUDA card and the CUDA
 toolkit (``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``). It
@@ -192,7 +193,18 @@ into ``build/repro_torch/`` and then, failing on the first error:
     depth served through ``prefill``/``decode_step`` with its encoder's
     memory (4 x 4096 frames, equal streams over two runs), float32 card
     against CPU, and its three cells;
-26. prints one JSON line of per-kernel results, the card's name and power
+26. the VLM and MLA families (``lm_vlm_mla``): llava-next-mistral-7b
+    and deepseek-v2-236b (cut in depth, ``VLM_MLA_CUTS``) served three
+    ways, float32 card against CPU, and their cells;
+27. the paper's figures and tables (``figures``): every module of
+    ``benchmarks/torch_run.py`` (Figs 3-5, 11, 14-20, Table 1, the
+    bank-parallelism and reliability sweeps) on the card at the
+    reference's sizes, each row held against
+    ``benchmarks/torch_figures_reference.json`` (exact numbers and words
+    byte-equal, Monte-Carlo numbers within their stored tolerance);
+    K1, K2, K3 and K5 each launch; prints each module's seconds and
+    launches;
+28. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -3537,15 +3549,106 @@ def mla_arch(device: str, build, seed: int) -> dict:
     return out
 
 
+FIGURE_KERNELS = ("bit_transpose32", "run_program_cuda", "maj_n",
+                  "charge_share")
+# The rows the PERF table sets beside the reference's and the paper's.
+FIGURE_ROWS = ("fig03.fracdram_maj3_ddr4_mean",
+               "fig14.pulsar_vs_fracdram_gain", "fig16.spatial",
+               "fig17.avg_M", "fig17.avg_H", "fig20.bmi", "fig20.knn")
+
+
+def figures(device: str, build) -> dict:
+    """Phase 27 (``figures``) on ``device``: every module of
+    ``benchmarks/torch_run.py`` (the paper's figures and tables, the
+    bank-parallelism and reliability sweeps) at the reference's sizes,
+    each row held against ``benchmarks/torch_figures_reference.json``:
+    exact numbers and every word byte-equal, statistical ones within
+    their stored tolerance, host walls skipped. Launch counts are set to
+    0 just before the modules run. Prints each module's seconds and
+    launches and the worst statistical number against its tolerance,
+    writes every row to ``build/figures_rows.csv``, and returns the
+    launches and seconds."""
+    from benchmarks import common, torch_run
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.kernels import bit_transpose, charge_share, codegen, maj_n
+    reference = torch_run.load_reference()
+    on_card = device != "cpu"
+    if on_card:
+        # The fused programs of Fig 20 and the sweep, recorded on the CPU.
+        t = time.perf_counter()
+        programs = programs_of(engine_mod, lambda: [
+            torch_run.module(n).run(device="cpu")
+            for n in ("fig20_realworld", "reliability_sweep")])
+        common.drain_counters()
+        items = {codegen.build_item(p) for p in programs}
+        build.build_many(sorted(items | {
+            bit_transpose.build_item(), charge_share.build_item(),
+            maj_n.build_item()}))
+        print(f"phase 27: {len(programs)} flushes of {len(items)} fused "
+              f"programs recorded on the CPU, every kernel built, in "
+              f"{time.perf_counter() - t:.1f} s")
+    reset_launches(build)
+    out = {"seconds": {}}
+    names, bad, lines = [], [], ["name,us_per_call,derived"]
+    t_all = time.perf_counter()
+    for name in torch_run.MODULES:
+        before = dict(build.LAUNCHES)
+        t = time.perf_counter()
+        rows = torch_run.module(name).run(device=device)
+        secs = time.perf_counter() - t
+        common.drain_counters()
+        rose = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                for k in FIGURE_KERNELS}
+        worst = (0.0, "")
+        for row, us, derived in rows:
+            names.append(row)
+            lines.append(f'{row},{us},"{derived}"')
+            entry = reference.get(row)
+            if entry is None:
+                bad.append(f"{row}: not a reference row")
+                continue
+            bad += torch_run.check_row(derived, entry)
+            nums = torch_run.split(derived)[1]
+            for (field, text), f in zip(nums, entry["fields"]):
+                if f["kind"] == "statistical":
+                    r = abs(float(text) - float(f["text"])) / f["tol"]
+                    if r >= worst[0]:
+                        worst = (r, f"{row} {field}={text} (reference "
+                                    f"{f['text']}, tol {f['tol']:.4g})")
+            if row in FIGURE_ROWS:
+                print(f"  {row}: {derived} | reference: {entry['derived']}")
+        out["seconds"][name] = secs
+        print(f"figures {name}: {len(rows)} rows in {secs:.2f} s, launches "
+              f"{rose}" + (f"; worst statistical |d|/tol {worst[0]:.3f}: "
+                           f"{worst[1]}" if worst[1] else ""), flush=True)
+    out["total_s"] = time.perf_counter() - t_all
+    out["launches"] = {k: build.LAUNCHES.get(k, 0) for k in FIGURE_KERNELS}
+    csv = ROOT / "build" / "figures_rows.csv"
+    csv.parent.mkdir(parents=True, exist_ok=True)
+    csv.write_text("\n".join(lines) + "\n")
+    check(names == list(reference),
+          f"phase 27: rows {names} are not the reference's "
+          f"{list(reference)}")
+    check(not bad, "phase 27: " + "; ".join(bad))
+    if on_card:
+        check(all(out["launches"][k] > 0 for k in FIGURE_KERNELS),
+              f"phase 27: a kernel never launched {out['launches']}")
+    print(f"figures: {len(names)} rows of {len(torch_run.MODULES)} modules "
+          f"on {device} equal the reference's or lie within their "
+          f"tolerance; {out['total_s']:.1f} s, launches {out['launches']}; "
+          f"rows in {csv.relative_to(ROOT)}")
+    return out
+
+
 ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic", "lm_moe_encdec",
-         "lm_vlm_mla")
+         "lm_vlm_mla", "figures")
 
 
 def run_alone(argv: list[str]) -> int:
     """``--only NAME``: one phase of :data:`ALONE` by itself (phases 20,
-    24, 25 and 26 on one card; phase 23 over every visible card, its fault
-    controls included when there are several), the kernels it launches
-    built first; no result line."""
+    24, 25, 26 and 27 on one card; phase 23 over every visible card, its
+    fault controls included when there are several), the kernels it
+    launches built first; no result line."""
     if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ALONE:
         print(f"usage: chip_smoke.py [--only {'|'.join(ALONE)}]",
               file=sys.stderr)
@@ -3555,7 +3658,9 @@ def run_alone(argv: list[str]) -> int:
     from repro_torch.pum import capture as capture_mod
     from repro_torch.serve.engine import ServeEngine
     t = time.perf_counter()
-    if argv[1] != "lm_cells_sharded":
+    if argv[1] == "figures":
+        figures("cuda", _build)
+    elif argv[1] != "lm_cells_sharded":
         programs = programs_of(capture_mod, lambda: ServeEngine(
             get_smoke_config(SERVE_ARCH), max_batch=4, max_len=256,
             eos_id=-1, device="cpu").close())
@@ -4536,7 +4641,12 @@ def main() -> int:
     vlm_mla = lm_vlm_mla("cuda", _build, SEED)
     clock.stamp("26")
 
-    # -- 27. results ----------------------------------------------------- #
+    # -- 27. the paper's figures and tables through the port ------------- #
+    _free(True)
+    figs = figures("cuda", _build)
+    clock.stamp("27")
+
+    # -- 28. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -4553,8 +4663,10 @@ def main() -> int:
          + sharded["launches"]["bit_transpose32"]
          + subq["launches"]["bit_transpose32"]
          + moe_encdec["launches"]["bit_transpose32"]
-         + vlm_mla["launches"]["bit_transpose32"],
+         + vlm_mla["launches"]["bit_transpose32"]
+         + figs["launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
+         "launches_figures": figs["launches"]["bit_transpose32"],
          "launches_subquadratic": subq["launches"]["bit_transpose32"],
          "launches_moe_encdec": moe_encdec["launches"]["bit_transpose32"],
          "launches_vlm_mla": vlm_mla["launches"]["bit_transpose32"],
@@ -4587,8 +4699,10 @@ def main() -> int:
          + sharded["launches"]["run_program_cuda"]
          + subq["launches"]["run_program_cuda"]
          + moe_encdec["launches"]["run_program_cuda"]
-         + vlm_mla["launches"]["run_program_cuda"],
+         + vlm_mla["launches"]["run_program_cuda"]
+         + figs["launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
+         "launches_figures": figs["launches"]["run_program_cuda"],
          "launches_subquadratic": subq["launches"]["run_program_cuda"],
          "launches_moe_encdec": moe_encdec["launches"]["run_program_cuda"],
          "launches_vlm_mla": vlm_mla["launches"]["run_program_cuda"],
@@ -4614,7 +4728,9 @@ def main() -> int:
         {"name": "maj_n", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/maj_n.cu",
          "replaces": "src/repro/kernels/maj_n.py:44",
-         "launches": rel_launches["maj_n"], "max_abs_err": k3_err,
+         "launches": rel_launches["maj_n"] + figs["launches"]["maj_n"],
+         "launches_figures": figs["launches"]["maj_n"],
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": "bytes" if k3_bound_b >= k3_bound_o else "operations",
          "library_ms": None,
@@ -4636,7 +4752,10 @@ def main() -> int:
         {"name": "charge_share", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/charge_share.cu",
          "replaces": "src/repro/kernels/charge_share.py:33",
-         "launches": cal_launches["charge_share"], "max_abs_err": k5_err,
+         "launches": cal_launches["charge_share"]
+         + figs["launches"]["charge_share"],
+         "launches_figures": figs["launches"]["charge_share"],
+         "max_abs_err": k5_err,
          "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
          "bound_by": "bytes" if k5_bound_b >= k5_bound_o else "operations",
          "library_ms": None,

@@ -75,6 +75,25 @@ def test_no_jax_or_reference_imports():
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+    # The paper's figures through the port: no JAX, no reference package,
+    # and of ``benchmarks`` only ``common`` and the port's own modules.
+    figures = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    assert {p.name for p in figures} >= {
+        "torch_run.py", "torch_fig04_process_variation.py",
+        "torch_reliability_sweep.py"}
+    bad = [(p.name, m) for p in figures for m in _imports(p)
+           if m.split(".")[0] in FORBIDDEN or m == "."
+           or (m.split(".")[0] == "benchmarks"
+               and m not in ("benchmarks", "benchmarks.common")
+               and not m.startswith("benchmarks.torch_"))]
+    assert bad == []
+    # ``from benchmarks import X`` names only ``common`` or a port module.
+    for p in figures:
+        for node in ast.walk(ast.parse(p.read_text(), str(p))):
+            if (isinstance(node, ast.ImportFrom)
+                    and node.module == "benchmarks"):
+                assert all(a.name == "common" or a.name.startswith("torch_")
+                           for a in node.names), (p.name, ast.dump(node))
 
 
 def test_port_runs_with_jax_and_reference_unimportable():
