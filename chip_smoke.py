@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only lm_serve|lm_cells_sharded|lm_subquadratic
-    python3 chip_smoke.py --only lm_moe_encdec|lm_vlm_mla|figures
+    python3 chip_smoke.py --only lm_moe_encdec|lm_vlm_mla|figures|lm_dense
 
 Run from the root of a checkout on a host with one CUDA card and the CUDA
 toolkit (``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``). It
@@ -152,9 +152,10 @@ into ``build/repro_torch/`` and then, failing on the first error:
     qwen1.5-0.5b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` cells
     built by ``repro_torch.launch.steps.build_cell`` on one card's mesh at
     full width, the global batch cut to 2, 1 and 8 (the sequence lengths
-    kept): the tensors given equal the analytic dry run's argument bytes,
-    outputs finite (prints warm wall, peak memory, the dry run's counted
-    FLOPs and the roofline's one-card bound); then the analytic dry run
+    kept; ``prefill_32k`` at 8 of the 24 layers): the tensors given equal
+    the analytic dry run's argument bytes, outputs finite (prints warm
+    wall, peak memory, the dry run's counted FLOPs and the one-card
+    bound of :func:`one_card_bound`); then the analytic dry run
     of the three cells on the 16x16 production mesh (host only), with
     each cell's collective census (a DTensor trace on ``meta`` over a
     ``fake`` process group) and the roofline's collective term;
@@ -204,7 +205,14 @@ into ``build/repro_torch/`` and then, failing on the first error:
     byte-equal, Monte-Carlo numbers within their stored tolerance);
     K1, K2, K3 and K5 each launch; prints each module's seconds and
     launches;
-28. prints one JSON line of per-kernel results, the card's name and power
+28. the last three dense architectures (``lm_dense``): qwen3-1.7b
+    (qk-norm), phi3-medium-14b and qwen2.5-32b (QKV bias; GQA groups of
+    2, 4 and 5 at head_dim 128) at full width and depth, their weights
+    drawn in bfloat16 (the count equal to ``count_params``), through
+    ``ServeEngine`` three ways (equal streams, K1/K2 each tick); float32
+    card against CPU (``DENSE_F32_LAYERS``); their cells cut to
+    ``DENSE_CUTS``; the launcher for qwen3-1.7b and phi3-medium-14b;
+29. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -1280,6 +1288,26 @@ def serve_three_ways(cfg, params, build, dev, tag: str) -> dict:
     return out
 
 
+def serve_launcher(arch: str, device: str) -> None:
+    """``python -m repro_torch.launch.serve --arch ARCH --device DEVICE``
+    in process, as a user runs it (``--smoke`` on the CPU): it serves 8
+    requests of 16 new tokens; prints its line."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as launch_serve
+    argv = ["--arch", arch, "--device", device]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(launch_serve.main(argv + (["--smoke"] if device == "cpu"
+                                        else [])) == 0,
+              f"{arch}: the launcher failed")
+    line = buf.getvalue().strip()
+    check(line.startswith(f"[serve] {arch}: 8 requests, 128 tokens"),
+          f"launcher printed {line!r}")
+    print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
+          f"{line}")
+
+
 def lm_serve(device: str, build, stop_program, seed: int) -> dict:
     """The LM serve phases on ``device`` (``"cuda"`` on the card; on the
     CPU they rehearse at the arch's smoke config):
@@ -1297,15 +1325,12 @@ def lm_serve(device: str, build, stop_program, seed: int) -> dict:
        versions, timed;
     e. the launcher, ``python -m repro_torch.launch.serve --arch
        qwen1.5-0.5b``, in process."""
-    import contextlib
-    import io
     import numpy as np
     import torch
     from repro_torch.config.base import (ARCH_IDS, get_config,
                                          get_smoke_config)
     from repro_torch.kernels import bit_transpose, ref
     from repro_torch.kernels import fused_program as fp
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model as lm
     from repro_torch.models.tree import tree_leaves, tree_map
     on_card = device != "cpu"
@@ -1406,16 +1431,7 @@ def lm_serve(device: str, build, stop_program, seed: int) -> dict:
         out["serve_k1"], out["serve_k2"] = k1, k2
 
     # -- e. the launcher, as a user runs it ----------------------------- #
-    argv = ["--arch", SERVE_ARCH, "--device", device]
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        check(launch_serve.main(argv + (["--smoke"] if smoke else [])) == 0,
-              "the launcher failed")
-    line = buf.getvalue().strip()
-    check(line.startswith(f"[serve] {SERVE_ARCH}: 8 requests, 128 tokens"),
-          f"launcher printed {line!r}")
-    print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
-          f"{line}")
+    serve_launcher(SERVE_ARCH, device)
     return out
 
 
@@ -1923,9 +1939,13 @@ def lm_train(device: str, build, seed: int) -> dict:
 
 
 LAUNCH_ARCH = "qwen1.5-0.5b"    # the cells' model: the launchers' example
-# (shape, global batch kept on one card): each shape's sequence length is
-# kept; only its global batch is cut to what one 80 GB card holds.
-LAUNCH_CUTS = (("train_4k", 2), ("prefill_32k", 1), ("decode_32k", 8))
+# (shape, global batch kept on one card, layers; None keeps the depth):
+# each shape's sequence length is kept; only its global batch is cut to
+# what one 80 GB card holds, and prefill_32k's depth to 8 of the 24
+# layers to keep the script inside its time limit (PERF.md section 4;
+# 8.3 s a call at 24).
+LAUNCH_CUTS = (("train_4k", 2, None), ("prefill_32k", 1, 8),
+               ("decode_32k", 8, None))
 
 
 def launch_and_shard(device: str, build, seed: int) -> dict:
@@ -2209,7 +2229,7 @@ def lm_cells_run(device: str, seed: int) -> dict:
 
     # the analytic dry run on 16x16 (host)
     t = time.perf_counter()
-    for name, _ in LAUNCH_CUTS:
+    for name, *_ in LAUNCH_CUTS:
         rec = dryrun.run_cell(LAUNCH_ARCH, name, False)
         p = roofline.analyze_record(rec)
         print(f"dry run {LAUNCH_ARCH} x {name} x {rec['mesh']}: "
@@ -2293,23 +2313,66 @@ def lm_cell_args(cell, cfg, dev, seed: int, place=None) -> tuple:
     return params, caches, token, position
 
 
+class _NoWeights:
+    """``cfg`` with no parameters: the roofline, asked about it, counts
+    activations and caches but no weights."""
+
+    def __init__(self, cfg):
+        self._cfg = cfg
+
+    def __getattr__(self, name):
+        return getattr(self._cfg, name)
+
+    def param_count(self) -> int:
+        return 0
+
+
+def weights_read(cfg, tokens: int) -> int:
+    """The parameters of ``cfg`` that a step over ``tokens`` tokens must
+    read: all of them, but in each MoE layer only the routed experts that
+    ``tokens * top_k`` choices can reach, ``min(n_experts, tokens *
+    top_k)`` (the analytic FLOPs count ``top_k`` experts a token). A
+    decode step of a few sequences reaches a few experts; a prefill or a
+    train step reaches them all."""
+    n = cfg.param_count()
+    if not cfg.moe:
+        return n
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.init import Draw
+    experts = moe_mod.moe_params(Draw(None, "meta"), cfg)
+    per_expert = sum(experts[k].numel() for k in ("w_gate", "w_up",
+                                                  "w_down")) // cfg.n_experts
+    unread = cfg.n_experts - min(cfg.n_experts, tokens * cfg.top_k)
+    return n - (cfg.n_layers - cfg.first_dense_layers) * per_expert * unread
+
+
 def one_card_bound(roofline, cfg, name: str, cut: int) -> dict:
     """The roofline's least time for ``cfg`` (a config that may be cut in
     depth; the roofline reads it in place of its arch's) in a cell cut
     to ``cut`` sequences on one card: the analytic FLOPs scaled by
-    ``cut`` over the global batch at ``PEAK_FLOPS``, against the analytic
-    bytes of one device holding ``cut`` sequences (``global_batch / cut``
-    devices, no model axis) at ``HBM_BW``."""
+    ``cut`` over the global batch at ``PEAK_FLOPS``, against bytes at
+    ``HBM_BW``: the roofline's activations and caches of one device
+    holding ``cut`` sequences (``global_batch / cut`` devices, no model
+    axis), and the weights that the one card holds and the step reads
+    (:func:`weights_read`), 2 bytes each serving and ``2 * 2 + 4 * 7``
+    training (bfloat16 reads, the float32 gradient and AdamW). The
+    roofline's own weight term is left out: its rule for a production
+    mesh shards the weights over the devices past 12e9 bytes."""
     from repro_torch.config.base import LM_SHAPES
-    gb = LM_SHAPES[name].global_batch
+    shape = LM_SHAPES[name]
+    gb = shape.global_batch
     real_get_config = roofline.get_config
-    roofline.get_config = lambda _arch: cfg
+    roofline.get_config = lambda _arch: _NoWeights(cfg)
     try:
         flops = roofline.analytic_flops(cfg.name, name) * cut / gb
-        nbytes = roofline.analytic_bytes_per_chip(cfg.name, name, gb // cut,
-                                                  msize=1)
+        rest = roofline.analytic_bytes_per_chip(cfg.name, name, gb // cut,
+                                                msize=1)
     finally:
         roofline.get_config = real_get_config
+    train = shape.kind == "train"
+    tokens = cut * (1 if shape.kind == "decode" else shape.seq_len)
+    nbytes = rest + (2 * 2 + 4 * 7 if train else 2) * weights_read(cfg,
+                                                                   tokens)
     compute, memory = flops / roofline.PEAK_FLOPS, nbytes / roofline.HBM_BW
     return {"flops": flops, "bytes": nbytes, "compute_s": compute,
             "memory_s": memory, "bound_s": max(compute, memory)}
@@ -2385,7 +2448,7 @@ def lm_cells_sharded(device: str, build, seed: int,
           f"ranks' start")
     out = {"ranks": n, "mesh": list(mesh), "wall_s": wall, "cells": {}}
     faults = []  # printed first, every cell, then failed on together
-    for name, _ in LAUNCH_CUTS:
+    for name, *_ in LAUNCH_CUTS:
         c0 = res[0]["cells"][name]
         errs = c0["errors"]
         print(f"  {name} at {c0['batch']} x {c0['seq']}: against the "
@@ -2645,7 +2708,7 @@ def sharded_cells_rank(rank: int, world: int, device: str, seed: int,
 
     out = {"mesh": mesh.axis_sizes, "cells": {}}
     grads = None
-    for name, cut in LAUNCH_CUTS:
+    for name, cut, _ in LAUNCH_CUTS:
         if cells is not None and name not in cells:
             continue
         g = LM_SHAPES[name]
@@ -2775,12 +2838,14 @@ SUBQ_ARCHS = ("mamba2-130m", "hymba-1.5b")   # the sub-quadratic family
 # limit (PERF.md section 4): hymba-1.5b's prefill_32k would fit 4
 # sequences (2 peak at ~30 GiB) but a call of 2 takes ~36 s, so it runs
 # 1 (the configuration a device-side index assert was once seen in);
-# both train_4k cells run half the batch that fits (mamba2-130m's 16
-# peak at 67 GiB, hymba-1.5b's 4 at 58 GiB).
+# mamba2-130m's train_4k runs a quarter of the batch that fits (16 peak
+# at 67 GiB) and its prefill_32k 8 sequences (16 peak at 67 GiB, 5.4 s a
+# call), hymba-1.5b's train_4k 1 sequence (4 peak at 58 GiB, 2 take 3.2
+# s a call).
 SUBQ_CUTS = {
-    "mamba2-130m": (("train_4k", 8), ("prefill_32k", 16),
+    "mamba2-130m": (("train_4k", 4), ("prefill_32k", 8),
                     ("decode_32k", 128), ("long_500k", 1)),
-    "hymba-1.5b": (("train_4k", 2), ("prefill_32k", 1),
+    "hymba-1.5b": (("train_4k", 1), ("prefill_32k", 1),
                    ("decode_32k", 128), ("long_500k", 1)),
 }
 SSM_STATE_TOKENS = 2048   # a prefill of several 256-token chunks
@@ -2847,12 +2912,9 @@ def subquadratic_arch(arch: str, device: str, build, seed: int) -> dict:
        cut to :data:`SUBQ_CUTS` (:func:`run_cells`);
     d. the launcher, ``python -m repro_torch.launch.serve --arch ARCH``,
        in process."""
-    import contextlib
-    import io
     import numpy as np
     import torch
     from repro_torch.config.base import get_config, get_smoke_config
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model as lm
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.tree import tree_leaves, tree_map
@@ -2931,16 +2993,7 @@ def subquadratic_arch(arch: str, device: str, build, seed: int) -> dict:
     stamp("c")
 
     # -- d. the launcher, as a user runs it ----------------------------- #
-    argv = ["--arch", arch, "--device", device]
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        check(launch_serve.main(argv + ([] if on_card else ["--smoke"]))
-              == 0, f"{arch}: the launcher failed")
-    line = buf.getvalue().strip()
-    check(line.startswith(f"[serve] {arch}: 8 requests, 128 tokens"),
-          f"launcher printed {line!r}")
-    print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
-          f"{line}")
+    serve_launcher(arch, device)
     stamp("d")
     return out
 
@@ -2954,15 +3007,16 @@ ENCDEC_FRAMES = 48   # float32 check: a memory longer than the 16 tokens
 # runs its 48 layers (52.7 GiB of bfloat16 weights, 12.0 GiB of cache at
 # 1 sequence); its train_4k 4 layers (float32 weights, gradients and
 # AdamW moments: 36.5 GiB; all 48 would need ~420 GiB); its prefill_32k
-# 4 layers for time: all 48 would fit at ~70 GiB but take ~18 s a call
-# (8 layers take 3.0 s).
+# 2 layers (the dense layer and 1 MoE) for time: all 48 would fit at ~70
+# GiB but take ~18 s a call (4 layers take 1.5 s).
 # seamless-m4t-large-v2's batches are cut to fit 80 GB (PERF.md section
-# 4); its train_4k and decode_32k keep their 24 + 24 layers, its
-# prefill_32k runs 8 + 8 for time (at 24 + 24, 9.4 s a call).
+# 4), its train_4k further to 2 for time (4 take 1.8 s a call); its
+# train_4k and decode_32k keep their 24 + 24 layers, its prefill_32k runs
+# 4 + 4 for time (at 24 + 24, 9.4 s a call; at 8 + 8, 3.1 s).
 MOE_ENCDEC_CUTS = {
-    MOE_ARCH: (("train_4k", 2, 4), ("prefill_32k", 1, 4),
+    MOE_ARCH: (("train_4k", 2, 4), ("prefill_32k", 1, 2),
                ("decode_32k", 1, None)),
-    ENCDEC_ARCH: (("train_4k", 4, None), ("prefill_32k", 1, 8),
+    ENCDEC_ARCH: (("train_4k", 2, None), ("prefill_32k", 1, 4),
                   ("decode_32k", 16, None)),
 }
 
@@ -3307,15 +3361,15 @@ MLA_F32_LAYERS = 2     # float32 check: the dense layer and 1 MoE, 20.0 GiB
 # llava-next-mistral-7b's decode_32k runs its 32 layers (13.5 GiB of
 # bfloat16 weights, 4.0 GiB of cache a sequence); its train_4k 8 layers
 # (float32 weights, gradients and AdamW moments: 30.0 GiB; 32 layers
-# would need 108 GiB); its prefill_32k 8 layers for time (~20 s a call
-# at 32). deepseek-v2-236b's decode_32k runs 8 layers (54.4 GiB of
-# weights, 0.30 GB of cache a sequence); its prefill_32k 2 layers (the
+# would need 108 GiB); its prefill_32k 4 layers for time (~20 s a call
+# at 32, 5.9 s at 8). deepseek-v2-236b's decode_32k runs 8 layers (54.4
+# GiB of weights, 0.30 GB of cache a sequence); its prefill_32k 2 layers (the
 # dense layer and 1 MoE); its train_4k its one dense layer (AdamW state
 # 20.7 GiB; with one MoE layer 79.9 GiB, more than the card holds) at 1
 # sequence: 1 peaked at 51.41 GiB, 2 ran out of the card's memory in
 # the backward of the dense 128-head attention.
 VLM_MLA_CUTS = {
-    VLM_ARCH: (("train_4k", 2, 8), ("prefill_32k", 1, 8),
+    VLM_ARCH: (("train_4k", 2, 8), ("prefill_32k", 1, 4),
                ("decode_32k", 8, None)),
     MLA_ARCH: (("train_4k", 1, 1), ("prefill_32k", 1, 2),
                ("decode_32k", 16, 8)),
@@ -3339,38 +3393,38 @@ def lm_vlm_mla(device: str, build, seed: int) -> dict:
     return out
 
 
-def vlm_arch(device: str, build, seed: int) -> dict:
-    """Phase 26 for llava-next-mistral-7b (its full config on the card):
+def arch_phase(phase: int, arch: str, device: str, build, seed: int, *,
+               f32_layers: int | None, cuts, launcher: bool,
+               f32_prefix: int | None = None, serve_more=None) -> dict:
+    """One arch of phases 26 and 28 (its full config on the card; on the
+    CPU its smoke config):
 
     a. bfloat16 at full depth, the weights drawn in bfloat16, their count
-       equal to ``count_params``: text through ``ServeEngine`` three ways
-       (:func:`serve_three_ways`; it passes no patches, in the reference
-       as in the port), then the 2,880-patch prefix through
-       ``prefill``/``decode_step`` (:func:`prefix_serve`);
-    b. float32 at :data:`VLM_F32_LAYERS` layers, the card against the
-       CPU (:func:`lm_parity`: prefill 2 x (:data:`VLM_F32_PATCHES`
-       patches + 16 tokens) and 4 decode steps within ``SERVE_F32_TOL``,
-       greedy tokens equal);
-    c. its cells cut to :data:`VLM_MLA_CUTS` (:func:`run_cells`);
-    d. the launcher, ``python -m repro_torch.launch.serve --arch ARCH``,
-       in process (its float32 masters, 27 GiB, fit one card)."""
-    import contextlib
-    import io
+       equal to ``count_params``, through ``ServeEngine`` three ways
+       (:func:`serve_three_ways`), then ``serve_more(cfg, params, dev)``
+       where given, its dict merged into the result;
+    b. float32 at ``f32_layers`` layers (None keeps the depth), the card
+       against the CPU (:func:`lm_parity`: prefill 2 x 16 tokens, after
+       ``f32_prefix`` patches on the card, and 4 decode steps within
+       ``SERVE_F32_TOL``, greedy tokens equal);
+    c. its cells cut to ``cuts`` (:func:`run_cells`);
+    d. where ``launcher``, the launcher, ``python -m
+       repro_torch.launch.serve --arch ARCH``, in process; else a line
+       says why not: it draws float32 masters that one card cannot
+       hold."""
     import numpy as np
     import torch
     from repro_torch.config.base import get_config, get_smoke_config
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model as lm
     from repro_torch.models.tree import tree_leaves, tree_map
-    arch = VLM_ARCH
     on_card = device != "cpu"
     dev = torch.device(device)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are enabled: float32 checks would see TF32 error")
     cfg = get_config(arch) if on_card else get_smoke_config(arch)
-    stamp = _stamper(f"26 {arch}")
+    stamp = _stamper(f"{phase} {arch}")
 
-    # -- a. bf16 at full depth: text three ways, then the patch prefix -- #
+    # -- a. bf16 at full depth through ServeEngine, three ways ---------- #
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev, dtype=torch.bfloat16)
     n_params = sum(x.numel() for x in tree_leaves(params))
@@ -3379,34 +3433,40 @@ def vlm_arch(device: str, build, seed: int) -> dict:
           f"{cfg.param_count()}")
     print(f"{arch} ({cfg.name}): {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, padded vocab "
-          f"{cfg.padded_vocab}, {cfg.n_frontend_tokens} patch tokens, "
-          f"{n_params:,} parameters drawn in bfloat16 = count_params")
+          f"{cfg.resolved_head_dim} (groups of "
+          f"{cfg.n_heads // cfg.n_kv_heads}), d_ff {cfg.d_ff}, padded vocab "
+          f"{cfg.padded_vocab}, qk_norm {cfg.qk_norm}, qkv_bias "
+          f"{cfg.qkv_bias}"
+          + (f", {cfg.n_frontend_tokens} patch tokens"
+             if cfg.frontend == "vision" else "")
+          + f"; {n_params:,} parameters drawn in bfloat16 "
+          f"({n_params * 2 / 2**30:.2f} GiB) = count_params")
     out = serve_three_ways(cfg, params, build, dev, f"{arch} serve")
-    out["prefix"] = prefix_serve(cfg, params, dev, seed,
-                                 f"{arch} serve with patches")
+    if serve_more is not None:
+        out.update(serve_more(cfg, params, dev))
     del params
     _free(on_card)
     stamp("a")
 
-    # -- b. float32 at a cut depth: the card against the CPU ------------ #
-    cfg32 = dataclasses.replace(cfg, dtype="float32",
-                                n_layers=min(VLM_F32_LAYERS, cfg.n_layers))
+    # -- b. float32, the card against the CPU ---------------------------- #
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=min(
+        f32_layers or cfg.n_layers, cfg.n_layers))
     t = time.perf_counter()
     params = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
     cpu_params = tree_map(lambda x: x.cpu(), params)
-    n_patch = VLM_F32_PATCHES if on_card else None
     batch = lm_inputs(cfg32, np.random.default_rng(seed), 2, 16, dev,
-                      prefix=n_patch)
+                      prefix=f32_prefix if on_card else None)
     errs, same = lm_parity(cfg32, params, cpu_params, batch, dev, steps=4,
                            forward=False)
     del params, cpu_params
     err = max(errs.values())
-    print(f"{arch} float32 at {cfg32.n_layers} layers, {device} against "
-          f"CPU (prefill 2 x ({batch['patches'].shape[1]} patches + 16 "
-          f"tokens), 4 decode steps): max abs logit error {err:.3e} (bound "
-          f"{SERVE_F32_TOL:g}), greedy tokens "
+    prompt = (f"({batch['patches'].shape[1]} patches + 16 tokens)"
+              if "patches" in batch else "16 tokens")
+    print(f"{arch} float32 at {cfg32.n_layers} of {cfg.n_layers} layers "
+          f"({cfg32.param_count() * 4 / 2**30:.2f} GiB), {device} against "
+          f"CPU (prefill 2 x {prompt}, 4 decode steps): max abs "
+          f"logit error {err:.3e} (bound {SERVE_F32_TOL:g}), greedy tokens "
           f"{'equal' if same else 'DIFFER'}, {time.perf_counter() - t:.1f} s")
     check(err <= SERVE_F32_TOL and same,
           f"{arch} float32 against the CPU: {errs}, tokens equal {same}")
@@ -3415,23 +3475,38 @@ def vlm_arch(device: str, build, seed: int) -> dict:
     stamp("b")
 
     # -- c. the cells on one card ---------------------------------------- #
-    out["cells"] = run_cells(arch, VLM_MLA_CUTS[arch], device, seed)
+    out["cells"] = run_cells(arch, cuts, device, seed)
     stamp("c")
 
     # -- d. the launcher, as a user runs it ------------------------------ #
-    argv = ["--arch", arch, "--device", device]
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        check(launch_serve.main(argv + ([] if on_card else ["--smoke"]))
-              == 0, f"{arch}: the launcher failed")
-    line = buf.getvalue().strip()
-    check(line.startswith(f"[serve] {arch}: 8 requests, 128 tokens"),
-          f"launcher printed {line!r}")
-    print(f"launcher (python -m repro_torch.launch.serve {' '.join(argv)}): "
-          f"{line}")
-    _free(on_card)
+    if launcher:
+        serve_launcher(arch, device)
+        _free(on_card)
+    else:
+        masters = get_config(arch).param_count() * 4 / 2**30
+        print(f"launcher (python -m repro_torch.launch.serve --arch {arch} "
+              f"--device {device}): not run; it builds ServeEngine(cfg), "
+              f"which draws float32 masters as the reference does "
+              f"({masters:.1f} GiB at full width, more than one 80 GB card)")
     stamp("d")
     return out
+
+
+def vlm_arch(device: str, build, seed: int) -> dict:
+    """Phase 26 for llava-next-mistral-7b (:func:`arch_phase`): text
+    through ``ServeEngine`` three ways (it passes no patches, in the
+    reference as in the port), then the 2,880-patch prefix through
+    ``prefill``/``decode_step`` (:func:`prefix_serve`); float32 at
+    :data:`VLM_F32_LAYERS` layers over :data:`VLM_F32_PATCHES` patches;
+    its cells cut to :data:`VLM_MLA_CUTS`; the launcher (its float32
+    masters, 27 GiB, fit one card)."""
+    def prefix(cfg, params, dev):
+        return {"prefix": prefix_serve(cfg, params, dev, seed,
+                                       f"{VLM_ARCH} serve with patches")}
+    return arch_phase(26, VLM_ARCH, device, build, seed,
+                      f32_layers=VLM_F32_LAYERS, f32_prefix=VLM_F32_PATCHES,
+                      cuts=VLM_MLA_CUTS[VLM_ARCH], launcher=True,
+                      serve_more=prefix)
 
 
 def mla_arch(device: str, build, seed: int) -> dict:
@@ -3640,13 +3715,68 @@ def figures(device: str, build) -> dict:
     return out
 
 
+DENSE_ARCHS = ("qwen3-1.7b", "phi3-medium-14b", "qwen2.5-32b")
+# float32 check, card against CPU: its depth (None keeps it). qwen3-1.7b
+# runs whole (7.59 GiB); phi3-medium-14b and qwen2.5-32b run 2 layers
+# (6.8 and 10.2 GB, most of it their embedding and head).
+DENSE_F32_LAYERS = {"qwen3-1.7b": None, "phi3-medium-14b": 2,
+                    "qwen2.5-32b": 2}
+# the serve launcher draws float32 masters (ServeEngine(cfg), as the
+# reference does): 7.6 and 54.6 GiB fit one card, qwen2.5-32b's 122.1
+# GiB do not.
+DENSE_LAUNCHER = ("qwen3-1.7b", "phi3-medium-14b")
+# (shape, batch on one card, layers; None keeps the depth): each shape's
+# sequence length and the width are kept (PERF.md section 4); bounds
+# count the whole weights of the cut config (one_card_bound).
+# qwen3-1.7b: train_4k 2 sequences at its 28 layers (AdamW state 30.4
+# GiB; peak 47.9 GiB), prefill_32k 2 layers for time (1.5 s a call at
+# 4), decode_32k 8 sequences at 28 layers (28 GiB of cache; peak 32.4).
+# phi3-medium-14b: train_4k 4 of 40 layers (state 35.6 GiB, peak 47.9;
+# 40 would need 218 GiB), prefill_32k 1 layer for time (1.9 s a call at
+# 2), decode_32k 4 sequences at 40 layers (27.3 GiB of weights, 25 GiB
+# of cache; peak 52.7).
+# qwen2.5-32b: train_4k 2 of 64 layers (state 38.0 GiB, peak 52.7),
+# prefill_32k 1 layer for time (1.9 s a call at 2), decode_32k 1
+# sequence at 64 layers (61.1 GiB of weights, 8 GiB of cache; peak
+# 69.1).
+DENSE_CUTS = {
+    "qwen3-1.7b": (("train_4k", 2, None), ("prefill_32k", 1, 2),
+                   ("decode_32k", 8, None)),
+    "phi3-medium-14b": (("train_4k", 1, 4), ("prefill_32k", 1, 1),
+                        ("decode_32k", 4, None)),
+    "qwen2.5-32b": (("train_4k", 1, 2), ("prefill_32k", 1, 1),
+                    ("decode_32k", 1, None)),
+}
+
+
+def lm_dense(device: str, build, seed: int) -> dict:
+    """Phase 28 (``lm_dense``) on ``device`` (``"cuda"`` on the card; on
+    the CPU it rehearses at each arch's smoke config): :func:`arch_phase`
+    for qwen3-1.7b, phi3-medium-14b and qwen2.5-32b, in that order, at
+    :data:`DENSE_F32_LAYERS`, :data:`DENSE_CUTS` and
+    :data:`DENSE_LAUNCHER`."""
+    import torch
+    if device != "cpu":
+        _free(True)  # earlier phases' closed engines hold tensors in cycles
+        print(f"phase 28 starts with "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    out = {arch: arch_phase(28, arch, device, build, seed,
+                            f32_layers=DENSE_F32_LAYERS[arch],
+                            cuts=DENSE_CUTS[arch],
+                            launcher=arch in DENSE_LAUNCHER)
+           for arch in DENSE_ARCHS}
+    out["launches"] = {k: sum(out[a]["serve_launches"][k]
+                              for a in DENSE_ARCHS) for k in K12}
+    return out
+
+
 ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic", "lm_moe_encdec",
-         "lm_vlm_mla", "figures")
+         "lm_vlm_mla", "figures", "lm_dense")
 
 
 def run_alone(argv: list[str]) -> int:
     """``--only NAME``: one phase of :data:`ALONE` by itself (phases 20,
-    24, 25, 26 and 27 on one card; phase 23 over every visible card, its
+    24, 25, 26, 27 and 28 on one card; phase 23 over every visible card, its
     fault controls included when there are several), the kernels it
     launches built first; no result line."""
     if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ALONE:
@@ -3672,8 +3802,10 @@ def run_alone(argv: list[str]) -> int:
             lm_subquadratic("cuda", _build, SEED)
         elif argv[1] == "lm_moe_encdec":
             lm_moe_encdec("cuda", _build, SEED)
-        else:
+        elif argv[1] == "lm_vlm_mla":
             lm_vlm_mla("cuda", _build, SEED)
+        else:
+            lm_dense("cuda", _build, SEED)
     else:
         _build.build_many([bit_transpose.build_item()])
         lm_cells_sharded("cuda", _build, SEED)
@@ -4646,7 +4778,11 @@ def main() -> int:
     figs = figures("cuda", _build)
     clock.stamp("27")
 
-    # -- 28. results ----------------------------------------------------- #
+    # -- 28. the last dense architectures at full width ----------------- #
+    dense = lm_dense("cuda", _build, SEED)
+    clock.stamp("28")
+
+    # -- 29. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
@@ -4664,12 +4800,14 @@ def main() -> int:
          + subq["launches"]["bit_transpose32"]
          + moe_encdec["launches"]["bit_transpose32"]
          + vlm_mla["launches"]["bit_transpose32"]
-         + figs["launches"]["bit_transpose32"],
+         + figs["launches"]["bit_transpose32"]
+         + dense["launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
          "launches_figures": figs["launches"]["bit_transpose32"],
          "launches_subquadratic": subq["launches"]["bit_transpose32"],
          "launches_moe_encdec": moe_encdec["launches"]["bit_transpose32"],
          "launches_vlm_mla": vlm_mla["launches"]["bit_transpose32"],
+         "launches_dense": dense["launches"]["bit_transpose32"],
          "launches_cells_sharded": sharded["launches"]["bit_transpose32"],
          "launches_shard_words": shard["shard_launches"]["bit_transpose32"],
          "launches_serve": serve["serve_launches"]["bit_transpose32"],
@@ -4700,12 +4838,14 @@ def main() -> int:
          + subq["launches"]["run_program_cuda"]
          + moe_encdec["launches"]["run_program_cuda"]
          + vlm_mla["launches"]["run_program_cuda"]
-         + figs["launches"]["run_program_cuda"],
+         + figs["launches"]["run_program_cuda"]
+         + dense["launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
          "launches_figures": figs["launches"]["run_program_cuda"],
          "launches_subquadratic": subq["launches"]["run_program_cuda"],
          "launches_moe_encdec": moe_encdec["launches"]["run_program_cuda"],
          "launches_vlm_mla": vlm_mla["launches"]["run_program_cuda"],
+         "launches_dense": dense["launches"]["run_program_cuda"],
          "launches_cells_sharded": sharded["launches"]["run_program_cuda"],
          "launches_shard_words": shard["shard_launches"]["run_program_cuda"],
          "launches_serve": serve["serve_launches"]["run_program_cuda"],
