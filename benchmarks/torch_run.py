@@ -1,6 +1,6 @@
-"""The paper's figures and tables through the PyTorch port: one module
-per reference module of ``benchmarks/run.py`` (``kernel_bench`` aside),
-each ``benchmarks/torch_<name>.py``.
+"""The paper's figures and tables, and the kernel and engine
+microbenchmarks, through the PyTorch port: one module per reference
+module of ``benchmarks/run.py``, each ``benchmarks/torch_<name>.py``.
 
   PYTHONPATH=src python -m benchmarks.torch_run [--only fig17]
       [--device cpu] [--emit-dir DIR]
@@ -9,8 +9,10 @@ Prints the reference's ``name,us_per_call,derived`` CSV with the same
 rows in the same order. ``--device`` (default ``cuda``) is where every
 module runs; a module never falls back to the CPU. ``--emit-dir`` writes
 the gated modules' rows as ``BENCH_torch_*_h100.json`` (the schema of
-``benchmarks/common.py``). A failed module prints a ``name,-1,"FAILED:
-..."`` row and the process exits 1.
+``benchmarks/common.py``; ``python tools/bench_compare.py
+BENCH_kernel.json DIR/BENCH_torch_kernel_h100.json --check-rows``
+compares the kernel rows' set with the reference's). A failed module
+prints a ``name,-1,"FAILED: ..."`` row and the process exits 1.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ REFERENCE_PATH = pathlib.Path(__file__).with_name(
 NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
 
 BENCH_NAMES = {
+    "kernel_bench": "BENCH_torch_kernel_h100.json",
     "bank_parallelism": "BENCH_torch_bankpar_h100.json",
     "reliability_sweep": "BENCH_torch_reliability_h100.json",
 }
@@ -51,8 +54,13 @@ MODULES = [
     "fig18_nrg_sensitivity",
     "fig19_destruction",
     "fig20_realworld",
+    "kernel_bench",
     "reliability_sweep",
 ]
+# The modules whose rows ``REFERENCE_PATH`` holds: all but kernel_bench,
+# whose rows are host walls and device times (held by name against
+# ``BENCH_kernel.json`` instead).
+FIGURE_MODULES = [m for m in MODULES if m != "kernel_bench"]
 
 
 def module(name: str):

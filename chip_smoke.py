@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only lm_serve|lm_cells_sharded|lm_subquadratic
     python3 chip_smoke.py --only lm_moe_encdec|lm_vlm_mla|figures|lm_dense
+    python3 chip_smoke.py --only kernel_bench
 
 Run from the root of a checkout on a host with one CUDA card and the CUDA
 toolkit (``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``). It
@@ -197,7 +198,7 @@ into ``build/repro_torch/`` and then, failing on the first error:
 26. the VLM and MLA families (``lm_vlm_mla``): llava-next-mistral-7b
     and deepseek-v2-236b (cut in depth, ``VLM_MLA_CUTS``) served three
     ways, float32 card against CPU, and their cells;
-27. the paper's figures and tables (``figures``): every module of
+27. the paper's figures and tables (``figures``): every figure module of
     ``benchmarks/torch_run.py`` (Figs 3-5, 11, 14-20, Table 1, the
     bank-parallelism and reliability sweeps) on the card at the
     reference's sizes, each row held against
@@ -212,7 +213,14 @@ into ``build/repro_torch/`` and then, failing on the first error:
     ``ServeEngine`` three ways (equal streams, K1/K2 each tick); float32
     card against CPU (``DENSE_F32_LAYERS``); their cells cut to
     ``DENSE_CUTS``; the launcher for qwen3-1.7b and phi3-medium-14b;
-29. prints one JSON line of per-kernel results, the card's name and power
+29. the kernel and engine microbenchmarks (``kernel_bench``): the 21 rows
+    of ``benchmarks/torch_kernel_bench.py`` at the reference's sizes (2M
+    lanes; K3 at [31, 65536], K4, K1 and K5 at [32, 65536] timed in
+    device time), each kernel row's kernel held against its plain version
+    first; the rows' names and order the reference's, their set passing
+    ``tools/bench_compare.py``'s row gate against ``BENCH_kernel.json``,
+    every ``bit_exact``/``stats_match`` True, K1-K5 each launching;
+30. prints one JSON line of per-kernel results, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
@@ -2832,20 +2840,20 @@ def one_bit_run(grads, dev, build) -> dict:
 
 
 SUBQ_ARCHS = ("mamba2-130m", "hymba-1.5b")   # the sub-quadratic family
-# (shape, batch on one card) per arch: each shape's sequence length and
-# the model's depth are kept; only the global batch is cut, to what one
-# 80 GB card holds, and further to keep the script inside its time
-# limit (PERF.md section 4): hymba-1.5b's prefill_32k would fit 4
-# sequences (2 peak at ~30 GiB) but a call of 2 takes ~36 s, so it runs
-# 1 (the configuration a device-side index assert was once seen in);
-# mamba2-130m's train_4k runs a quarter of the batch that fits (16 peak
-# at 67 GiB) and its prefill_32k 8 sequences (16 peak at 67 GiB, 5.4 s a
-# call), hymba-1.5b's train_4k 1 sequence (4 peak at 58 GiB, 2 take 3.2
-# s a call).
+# (shape, batch on one card[, layers]) per arch: each shape's sequence
+# length is kept; the global batch is cut to what one 80 GB card holds,
+# and batch or depth further to keep the script inside its time limit
+# (PERF.md section 4): hymba-1.5b's prefill_32k would fit 4 sequences (2
+# peak at ~30 GiB) but a call of 2 takes ~36 s, so it runs 1 at its 32
+# layers (the configuration a device-side index assert was once seen
+# in); mamba2-130m's train_4k runs 2 sequences (16 peak at 67 GiB) and
+# its prefill_32k 4 (16 peak at 67 GiB, 5.4 s a call at 8),
+# hymba-1.5b's train_4k 1 sequence at 16 of its 32 layers (4 peak at 58
+# GiB, 2 take 3.2 s a call at 32 layers).
 SUBQ_CUTS = {
-    "mamba2-130m": (("train_4k", 4), ("prefill_32k", 8),
+    "mamba2-130m": (("train_4k", 2), ("prefill_32k", 4),
                     ("decode_32k", 128), ("long_500k", 1)),
-    "hymba-1.5b": (("train_4k", 1), ("prefill_32k", 1),
+    "hymba-1.5b": (("train_4k", 1, 16), ("prefill_32k", 1),
                    ("decode_32k", 128), ("long_500k", 1)),
 }
 SSM_STATE_TOKENS = 2048   # a prefill of several 256-token chunks
@@ -3010,13 +3018,13 @@ ENCDEC_FRAMES = 48   # float32 check: a memory longer than the 16 tokens
 # 2 layers (the dense layer and 1 MoE) for time: all 48 would fit at ~70
 # GiB but take ~18 s a call (4 layers take 1.5 s).
 # seamless-m4t-large-v2's batches are cut to fit 80 GB (PERF.md section
-# 4), its train_4k further to 2 for time (4 take 1.8 s a call); its
+# 4), its train_4k further to 1 for time (4 take 1.8 s a call); its
 # train_4k and decode_32k keep their 24 + 24 layers, its prefill_32k runs
 # 4 + 4 for time (at 24 + 24, 9.4 s a call; at 8 + 8, 3.1 s).
 MOE_ENCDEC_CUTS = {
     MOE_ARCH: (("train_4k", 2, 4), ("prefill_32k", 1, 2),
                ("decode_32k", 1, None)),
-    ENCDEC_ARCH: (("train_4k", 2, None), ("prefill_32k", 1, 4),
+    ENCDEC_ARCH: (("train_4k", 1, None), ("prefill_32k", 1, 4),
                   ("decode_32k", 16, None)),
 }
 
@@ -3633,9 +3641,10 @@ FIGURE_ROWS = ("fig03.fracdram_maj3_ddr4_mean",
 
 
 def figures(device: str, build) -> dict:
-    """Phase 27 (``figures``) on ``device``: every module of
+    """Phase 27 (``figures``) on ``device``: every figure module of
     ``benchmarks/torch_run.py`` (the paper's figures and tables, the
-    bank-parallelism and reliability sweeps) at the reference's sizes,
+    bank-parallelism and reliability sweeps; ``kernel_bench`` is phase
+    29) at the reference's sizes,
     each row held against ``benchmarks/torch_figures_reference.json``:
     exact numbers and every word byte-equal, statistical ones within
     their stored tolerance, host walls skipped. Launch counts are set to
@@ -3666,7 +3675,7 @@ def figures(device: str, build) -> dict:
     out = {"seconds": {}}
     names, bad, lines = [], [], ["name,us_per_call,derived"]
     t_all = time.perf_counter()
-    for name in torch_run.MODULES:
+    for name in torch_run.FIGURE_MODULES:
         before = dict(build.LAUNCHES)
         t = time.perf_counter()
         rows = torch_run.module(name).run(device=device)
@@ -3708,7 +3717,8 @@ def figures(device: str, build) -> dict:
     if on_card:
         check(all(out["launches"][k] > 0 for k in FIGURE_KERNELS),
               f"phase 27: a kernel never launched {out['launches']}")
-    print(f"figures: {len(names)} rows of {len(torch_run.MODULES)} modules "
+    print(f"figures: {len(names)} rows of {len(torch_run.FIGURE_MODULES)} "
+          f"modules "
           f"on {device} equal the reference's or lie within their "
           f"tolerance; {out['total_s']:.1f} s, launches {out['launches']}; "
           f"rows in {csv.relative_to(ROOT)}")
@@ -3728,9 +3738,10 @@ DENSE_LAUNCHER = ("qwen3-1.7b", "phi3-medium-14b")
 # (shape, batch on one card, layers; None keeps the depth): each shape's
 # sequence length and the width are kept (PERF.md section 4); bounds
 # count the whole weights of the cut config (one_card_bound).
-# qwen3-1.7b: train_4k 2 sequences at its 28 layers (AdamW state 30.4
-# GiB; peak 47.9 GiB), prefill_32k 2 layers for time (1.5 s a call at
-# 4), decode_32k 8 sequences at 28 layers (28 GiB of cache; peak 32.4).
+# qwen3-1.7b: train_4k 1 sequence at its 28 layers for time (AdamW
+# state 30.4 GiB; 2 peak at 47.9 GiB), prefill_32k 2 layers for time
+# (1.5 s a call at 4), decode_32k 8 sequences at 28 layers (28 GiB of
+# cache; peak 32.4).
 # phi3-medium-14b: train_4k 4 of 40 layers (state 35.6 GiB, peak 47.9;
 # 40 would need 218 GiB), prefill_32k 1 layer for time (1.9 s a call at
 # 2), decode_32k 4 sequences at 40 layers (27.3 GiB of weights, 25 GiB
@@ -3740,7 +3751,7 @@ DENSE_LAUNCHER = ("qwen3-1.7b", "phi3-medium-14b")
 # sequence at 64 layers (61.1 GiB of weights, 8 GiB of cache; peak
 # 69.1).
 DENSE_CUTS = {
-    "qwen3-1.7b": (("train_4k", 2, None), ("prefill_32k", 1, 2),
+    "qwen3-1.7b": (("train_4k", 1, None), ("prefill_32k", 1, 2),
                    ("decode_32k", 8, None)),
     "phi3-medium-14b": (("train_4k", 1, 4), ("prefill_32k", 1, 1),
                         ("decode_32k", 4, None)),
@@ -3770,13 +3781,172 @@ def lm_dense(device: str, build, seed: int) -> dict:
     return out
 
 
+KERNELS = ("bit_transpose32", "run_program_cuda", "maj_n", "bitserial_add",
+           "charge_share")
+# kernel.* row of benchmarks/torch_kernel_bench.py -> the kernel it
+# launches and (bytes it must move, operations it does) at ``words``
+# words a plane (the reference's shapes: MAJ-31 at threshold 16, K = 5
+# counter planes; 32-bit add; G = words tiles; 32 rows, one pattern).
+KERNEL_BENCH_BOUNDS = {
+    "kernel.maj31_bitsliced": ("maj_n", lambda w: (32 * w * 4,
+                                                   w * 31 * (3 * 5 + 1))),
+    "kernel.bitserial_add32": ("bitserial_add", lambda w: (3 * 32 * w * 4,
+                                                           5 * 32 * w)),
+    "kernel.bit_transpose32": ("bit_transpose32", lambda w: (2 * 32 * w * 4,
+                                                             0)),
+    "kernel.charge_share32": ("charge_share", lambda w: (65 * w * 4,
+                                                         w * (3 * 32 + 1))),
+}
+
+
+def kernel_bench_items() -> list:
+    """``(name, source)`` of every kernel phase 29 launches: K1, K3, K4,
+    K5 and the fused programs of ``benchmarks/torch_kernel_bench.py``,
+    recorded on the CPU at 32 words a plane (a program's structure does
+    not depend on its lane count)."""
+    from benchmarks import common, torch_kernel_bench as kb
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.kernels import bit_transpose, charge_share, codegen, maj_n
+    # the package exports the kernel's wrapper under the module's name
+    k4 = importlib.import_module("repro_torch.kernels.bitserial_add")
+    programs = programs_of(engine_mod, lambda: kb.run("cpu", words=32))
+    common.drain_counters()
+    return sorted({codegen.build_item(p) for p in programs} | {
+        bit_transpose.build_item(), k4.build_item(),
+        charge_share.build_item(), maj_n.build_item()})
+
+
+def kernel_bench(device: str, build) -> dict:
+    """Phase 29 (``kernel_bench``) on ``device``: the 21 rows of
+    ``benchmarks/torch_kernel_bench.py`` (the port's ``kernel_bench``) at
+    the reference's sizes on the card (1024 words a plane on the CPU).
+    First each ``kernel.*`` row's kernel is held against its plain
+    version on the row's inputs (K5 within rtol 1e-5, atol 1e-7 V; the
+    others bit-exact, the bit-sliced MAJ also against the oracle), and
+    :func:`kernel_bench_items` are built (a no-op when ``main`` has
+    built them in the background). Launch counts are set to 0 just
+    before ``run``. Checks: the row names, in order, are ``ROWS``;
+    ``tools/bench_compare.py``'s row gate against ``BENCH_kernel.json``
+    passes; every ``bit_exact``/``stats_match`` is True; on the card K3,
+    K4, K5 and K1 launch in the kernel rows and K1 and K2 in the fused
+    rows. Prints each row, the
+    kernel rows' bounds, the seconds, the launches and the gate's
+    fused-vs-eager verdict (a relation of two walls, not checked);
+    writes the rows to ``build/BENCH_torch_kernel_h100.json``."""
+    import re
+    import torch
+    from benchmarks import common, torch_kernel_bench as kb
+    from repro_torch.kernels import ops, ref
+    from tools import bench_compare
+    on_card = device != "cpu"
+    words = kb.W if on_card else 1024
+
+    # -- the kernels against their plain versions at the rows' shapes --- #
+    x = kb.kernel_inputs(device, words)
+    oracle = ref.maj_n(x["x32"], 16)
+    got = {"maj_n": (ops.maj_n(x["x32"], 16), ref.maj_n_fast(x["x32"], 16)),
+           "bitserial_add": (ops.bitserial_add(x["a"], x["b"]),
+                             ref.bitserial_add(x["a"], x["b"])),
+           "bit_transpose32": (ops.bit_transpose32(x["a"]),
+                               ref.bit_transpose32(x["a"]))}
+    errs = {k: max_abs_err(*pair) for k, pair in got.items()}
+    errs["maj_n_oracle"] = max_abs_err(got["maj_n"][0], oracle)
+    k5, k5_plain = (ops.charge_share(x["v"], x["c"], vdd=1.2, c_bl=116.0),
+                    ref.charge_share(x["v"], x["c"], vdd=1.2, c_bl=116.0))
+    errs["charge_share"] = float((k5 - k5_plain).abs().max())
+    check(all(errs[k] == 0 for k in got) and errs["maj_n_oracle"] == 0
+          and torch.allclose(k5, k5_plain, rtol=1e-5, atol=1e-7),
+          f"phase 29: a kernel differs from its plain version {errs}")
+    del x, oracle, got, k5, k5_plain
+    if on_card:
+        t = time.perf_counter()
+        items = kernel_bench_items()
+        build.build_many(items)
+        slowest = max(items, key=lambda it: build.BUILDS[it[0]]["seconds"])
+        print(f"phase 29: kernels equal their plain versions at the rows' "
+              f"shapes {errs}; {len(items)} libraries recorded on the CPU "
+              f"and built in {time.perf_counter() - t:.1f} s (the slowest "
+              f"nvcc {slowest[0]}, {len(slowest[1]):,} bytes of source: "
+              f"{build.BUILDS[slowest[0]]['seconds']:.1f} s)")
+
+    # -- the module, its launches split at the kernel rows' end --------- #
+    after_kernel_rows = {}
+    real_kernel_rows = kb._kernel_rows
+
+    def kernel_rows(*args):
+        rows = real_kernel_rows(*args)
+        after_kernel_rows.update(build.LAUNCHES)
+        return rows
+
+    reset_launches(build)
+    kb._kernel_rows = kernel_rows
+    try:
+        t = time.perf_counter()
+        rows = kb.run(device, words=words)
+        secs = time.perf_counter() - t
+    finally:
+        kb._kernel_rows = real_kernel_rows
+    launches = {k: build.LAUNCHES.get(k, 0) for k in KERNELS}
+    in_kernel_rows = {k: after_kernel_rows.get(k, 0) for k in KERNELS}
+    in_fused_rows = {k: launches[k] - in_kernel_rows[k] for k in KERNELS}
+    path = ROOT / "build" / "BENCH_torch_kernel_h100.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    common.emit_bench_json("torch_kernel_bench", rows, str(path))
+    failures = bench_compare.compare(
+        bench_compare.load_bench(str(ROOT / "BENCH_kernel.json")),
+        bench_compare.load_bench(str(path)), check_rows_only=True)
+    row_failures = [f for f in failures if f.startswith("rows ")]
+    us = {name: u for name, u, _ in rows}
+    out = {"seconds": secs, "launches": launches, "us": us, "ms": {},
+           "bound_ms": {}, "bound_by": {}, "errs": errs}
+    for name, u, derived in rows:
+        print(f"  {name},{u},\"{derived}\"")
+    for name, (kernel, work) in KERNEL_BENCH_BOUNDS.items():
+        nbytes, n_ops = work(words)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = n_ops / (FP32_OPS_PER_S if kernel == "charge_share"
+                          else ALU_OPS_PER_S) * 1e3
+        out["ms"][kernel] = us[name] / 1e3
+        out["bound_ms"][kernel] = max(by_bytes, by_ops)
+        out["bound_by"][kernel] = "bytes" if by_bytes >= by_ops \
+            else "operations"
+        share = out["bound_ms"][kernel] * 1e3 / us[name]
+        print(f"  {name}: {us[name] / 1e3:.4f} ms a launch, bound "
+              f"{out['bound_ms'][kernel]:.4f} ms ({out['bound_by'][kernel]}"
+              f"; {nbytes} bytes), {share:.0%} of it")
+    flags = [m for _, _, d in rows
+             for m in re.findall(r"(?:bit_exact|stats_match)\S*=(\w+)", d)]
+    check(list(us) == list(kb.ROWS),
+          f"phase 29: rows {list(us)} are not the reference's {kb.ROWS}")
+    check(not row_failures, "phase 29: " + "; ".join(row_failures))
+    check(len(flags) == 8 and all(f == "True" for f in flags),
+          f"phase 29: bit_exact/stats_match flags {flags}")
+    if on_card:
+        check(all(in_kernel_rows[k] > 0 for k in (
+            "maj_n", "bitserial_add", "charge_share", "bit_transpose32"))
+              and all(in_fused_rows[k] > 0
+                      for k in ("bit_transpose32", "run_program_cuda")),
+              f"phase 29: kernel rows launched {in_kernel_rows}, the "
+              f"fused rows {in_fused_rows}")
+    speed = [f for f in failures if f not in row_failures]
+    print(f"kernel_bench: {len(rows)} rows on {device} in {secs:.1f} s, "
+          f"names and order the reference's, bench_compare's row gate "
+          f"against BENCH_kernel.json passes, every bit_exact/stats_match "
+          f"True; launches {launches} (kernel rows {in_kernel_rows}, fused "
+          f"rows {in_fused_rows}); rows in {path.relative_to(ROOT)}")
+    print(f"kernel_bench fused vs eager (bench_compare, not checked): "
+          + ("; ".join(speed) if speed else
+             "every app.*_fused row at least as fast as its eager row"))
+    return out
+
+
 ALONE = ("lm_serve", "lm_cells_sharded", "lm_subquadratic", "lm_moe_encdec",
-         "lm_vlm_mla", "figures", "lm_dense")
+         "lm_vlm_mla", "figures", "lm_dense", "kernel_bench")
 
 
 def run_alone(argv: list[str]) -> int:
     """``--only NAME``: one phase of :data:`ALONE` by itself (phases 20,
-    24, 25, 26, 27 and 28 on one card; phase 23 over every visible card, its
+    24-29 on one card; phase 23 over every visible card, its
     fault controls included when there are several), the kernels it
     launches built first; no result line."""
     if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ALONE:
@@ -3790,6 +3960,8 @@ def run_alone(argv: list[str]) -> int:
     t = time.perf_counter()
     if argv[1] == "figures":
         figures("cuda", _build)
+    elif argv[1] == "kernel_bench":
+        kernel_bench("cuda", _build)
     elif argv[1] != "lm_cells_sharded":
         programs = programs_of(capture_mod, lambda: ServeEngine(
             get_smoke_config(SERVE_ARCH), max_batch=4, max_len=256,
@@ -3900,6 +4072,11 @@ def main() -> int:
     for name, info in sorted(_build.BUILDS.items()):
         print(f"  {name}: {info['seconds']:.1f} s, "
               f"{_build.ptxas_summary(name)}")
+    # Phase 29's kernels build while phases 2-28 run: its width-64
+    # mul/div program is ~2.7 MB of generated source, ~1 min of nvcc.
+    kb_build = threading.Thread(target=_build.build_many,
+                                args=(kernel_bench_items(),))
+    kb_build.start()
     clock.stamp("1")
 
     # -- 2. bit-transpose kernel vs its plain version -------------------- #
@@ -4782,11 +4959,23 @@ def main() -> int:
     dense = lm_dense("cuda", _build, SEED)
     clock.stamp("28")
 
-    # -- 29. results ----------------------------------------------------- #
+    # -- 29. the kernel and engine microbenchmarks ---------------------- #
+    _free(True)
+    kb_build.join()
+    kbench = kernel_bench("cuda", _build)
+    clock.stamp("29")
+
+    # -- 30. results ----------------------------------------------------- #
     def slice5_launches(kernel):
         return {f"launches_{phase}":
                 slice5[f"{phase}_launches"].get(kernel, 0)
                 for phase in ("fig20", "db", "autotune", "online")}
+
+    def kernel_bench_keys(kernel):
+        return {"launches_kernel_bench": kbench["launches"][kernel],
+                "kernel_bench_ms": kbench["ms"][kernel],
+                "kernel_bench_bound_ms": kbench["bound_ms"][kernel],
+                "kernel_bench_bound_by": kbench["bound_by"][kernel]}
 
     results["kernels"] = [
         {"name": "bit_transpose32", "route": "cuda",
@@ -4801,8 +4990,10 @@ def main() -> int:
          + moe_encdec["launches"]["bit_transpose32"]
          + vlm_mla["launches"]["bit_transpose32"]
          + figs["launches"]["bit_transpose32"]
-         + dense["launches"]["bit_transpose32"],
+         + dense["launches"]["bit_transpose32"]
+         + kbench["launches"]["bit_transpose32"],
          "launches_main": launches["bit_transpose32"],
+         **kernel_bench_keys("bit_transpose32"),
          "launches_figures": figs["launches"]["bit_transpose32"],
          "launches_subquadratic": subq["launches"]["bit_transpose32"],
          "launches_moe_encdec": moe_encdec["launches"]["bit_transpose32"],
@@ -4839,8 +5030,10 @@ def main() -> int:
          + moe_encdec["launches"]["run_program_cuda"]
          + vlm_mla["launches"]["run_program_cuda"]
          + figs["launches"]["run_program_cuda"]
-         + dense["launches"]["run_program_cuda"],
+         + dense["launches"]["run_program_cuda"]
+         + kbench["launches"]["run_program_cuda"],
          "launches_main": launches["run_program_cuda"],
+         "launches_kernel_bench": kbench["launches"]["run_program_cuda"],
          "launches_figures": figs["launches"]["run_program_cuda"],
          "launches_subquadratic": subq["launches"]["run_program_cuda"],
          "launches_moe_encdec": moe_encdec["launches"]["run_program_cuda"],
@@ -4868,8 +5061,10 @@ def main() -> int:
         {"name": "maj_n", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/maj_n.cu",
          "replaces": "src/repro/kernels/maj_n.py:44",
-         "launches": rel_launches["maj_n"] + figs["launches"]["maj_n"],
+         "launches": rel_launches["maj_n"] + figs["launches"]["maj_n"]
+         + kbench["launches"]["maj_n"],
          "launches_figures": figs["launches"]["maj_n"],
+         **kernel_bench_keys("maj_n"),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": "bytes" if k3_bound_b >= k3_bound_o else "operations",
@@ -4883,7 +5078,10 @@ def main() -> int:
         {"name": "bitserial_add", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitserial_add.cu",
          "replaces": "src/repro/kernels/bitserial_add.py:32",
-         "launches": chip_launches["bitserial_add"], "max_abs_err": k4_err,
+         "launches": chip_launches["bitserial_add"]
+         + kbench["launches"]["bitserial_add"],
+         "launches_chip_model": chip_launches["bitserial_add"],
+         **kernel_bench_keys("bitserial_add"), "max_abs_err": k4_err,
          "ms": k4_times[32][0], "plain_ms": k4_times[32][1],
          "bound_ms": k4_times[32][2], "bound_by": k4_times[32][3],
          "library_ms": None, "shape": [32, 65536],
@@ -4893,8 +5091,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/charge_share.cu",
          "replaces": "src/repro/kernels/charge_share.py:33",
          "launches": cal_launches["charge_share"]
-         + figs["launches"]["charge_share"],
+         + figs["launches"]["charge_share"]
+         + kbench["launches"]["charge_share"],
          "launches_figures": figs["launches"]["charge_share"],
+         **kernel_bench_keys("charge_share"),
          "max_abs_err": k5_err,
          "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
          "bound_by": "bytes" if k5_bound_b >= k5_bound_o else "operations",

@@ -74,15 +74,19 @@ def compile_source(name: str, source: str) -> pathlib.Path:
         BUILDS.setdefault(name, {"seconds": 0.0, "ptxas": ""})
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = BUILD_DIR / f"{name}.cu"
+    # Each build writes its own source and output files and renames them
+    # into place, so two threads or processes may build one name at once.
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    cu = BUILD_DIR / f"{name}.{tag}.cu"
     cu.write_text(source)
-    tmp = BUILD_DIR / f"{name}.{os.getpid()}.{threading.get_ident()}.tmp"
+    tmp = BUILD_DIR / f"{name}.{tag}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr[-4000:]}")
     os.replace(tmp, so)
+    os.replace(cu, BUILD_DIR / f"{name}.cu")
     BUILDS[name] = {"seconds": time.perf_counter() - t0,
                     "ptxas": proc.stderr + proc.stdout}
     return so

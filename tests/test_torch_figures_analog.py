@@ -213,7 +213,7 @@ def _seed_values(name: str) -> dict[str, list[str]]:
 
 def build_reference() -> dict:
     rows = []
-    for name in torch_run.MODULES:
+    for name in torch_run.FIGURE_MODULES:
         ref = importlib.import_module(f"benchmarks.{name}").run()
         common.drain_counters()
         seeded = _seed_values(name) if name in STATISTICAL_MODULES else {}

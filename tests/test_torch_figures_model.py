@@ -90,8 +90,7 @@ def _main(module, argv: list[str]) -> tuple[int, str]:
 
 def test_cli_only_fig05_matches_reference_runner(monkeypatch):
     from benchmarks import run as ref_run
-    assert torch_run.MODULES == [m for m in ref_run.MODULES
-                                 if m != "kernel_bench"]
+    assert torch_run.MODULES == ref_run.MODULES
     rc, out = _main(torch_run, ["--only", "fig05", "--device", "cpu"])
     assert rc == 0
     monkeypatch.setattr(sys, "argv", ["run", "--only", "fig05"])

@@ -6,8 +6,9 @@ on every row that reports it, and the committed rows equal a fresh
 reference run. The reference's counts at ``inject_pv6_fs10``
 (``corrected=0``, ``fallbacks=1``) are among the port's own outcomes
 over seeds, so they are statistical, not a fault. Also the whole port
-runner on the CPU: every row of the reference's runner but
-``kernel_bench``'s, in order, and ``--emit-dir``."""
+runner on the CPU: every row of the reference's runner, in order (the
+figure rows against the JSON, ``kernel_bench``'s by name against
+``BENCH_kernel.json``), and ``--emit-dir``."""
 
 from __future__ import annotations
 
@@ -87,10 +88,15 @@ def test_reference_counts_within_port_spread(runs):
     assert fields["fallbacks"]["kind"] == "statistical"
 
 
-def test_whole_runner_on_cpu(tmp_path):
-    """Every row the reference's runner prints but ``kernel_bench``'s
-    (the committed JSON holds a fresh reference run of them, in
-    ``benchmarks/run.py``'s order), in the same order, exit 0."""
+def test_whole_runner_on_cpu(tmp_path, monkeypatch):
+    """Every row the reference's runner prints, in its order, exit 0:
+    the figure modules' rows held against the committed JSON (a fresh
+    reference run of them, in ``benchmarks/run.py``'s order), and
+    ``kernel_bench``'s rows (host walls and device times, at 1024 words
+    a plane here) by name against ``BENCH_kernel.json``, between
+    ``fig20_realworld``'s and the sweep's."""
+    from benchmarks import torch_kernel_bench
+    monkeypatch.setattr(torch_kernel_bench, "W", 1024)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(
             io.StringIO()):
@@ -98,11 +104,19 @@ def test_whole_runner_on_cpu(tmp_path):
     assert rc == 0
     lines = buf.getvalue().splitlines()
     assert lines[0] == "name,us_per_call,derived"
-    assert [x.split(",")[0] for x in lines[1:]] == list(REFERENCE)
+    names = [x.split(",")[0] for x in lines[1:]]
+    figures = [n for n in names if n not in torch_kernel_bench.ROWS]
+    assert figures == list(REFERENCE)
+    cut = [i for i, n in enumerate(names) if n.startswith("rel.")][0]
+    assert names[cut - len(torch_kernel_bench.ROWS):cut] == list(
+        torch_kernel_bench.ROWS)
+    baseline = json.loads((ROOT / "BENCH_kernel.json").read_text())
+    assert set(torch_kernel_bench.ROWS) == set(baseline["rows"])
     bad = []
     for line in lines[1:]:
         name, _, derived = line.split(",", 2)
-        bad += torch_run.check_row(derived[1:-1], REFERENCE[name])
+        if name in REFERENCE:
+            bad += torch_run.check_row(derived[1:-1], REFERENCE[name])
     assert bad == []
 
 
@@ -127,6 +141,7 @@ def test_phase27_rehearsed():
     import chip_smoke
     from repro_torch.kernels import _build
     out = chip_smoke.figures("cpu", _build)
-    assert set(out["seconds"]) == set(torch_run.MODULES)
+    assert set(out["seconds"]) == set(torch_run.FIGURE_MODULES)
+    assert "kernel_bench" not in out["seconds"]
     rows = (ROOT / "build" / "figures_rows.csv").read_text().splitlines()
     assert [x.split(",")[0] for x in rows[1:]] == list(REFERENCE)
