@@ -53,7 +53,8 @@ ROWS = ("kernel.maj31_oracle", "kernel.maj31_bitsliced",
         "engine.leaf_cache_cold", "engine.leaf_cache_warm", "app.bmi_eager",
         "app.bmi_fused", "app.kclique_eager", "app.kclique_fused")
 ROTATE_BYTES = 128 << 20   # input copies a timed round cycles through
-SLEEP_CYCLES = 40_000_000  # ~20 ms of card time to queue the calls behind
+SLEEP_CYCLES = 4_000_000   # ~2 ms of card time at least to queue calls behind
+SPAN_CALLS = 256           # calls queued behind one sleep
 
 # How each 64-bit fused backend evaluates width-64 mul/div.
 ROUTES_64 = {
@@ -483,24 +484,51 @@ def device_us(fn, args: tuple, repeat: int) -> float:
     events around back-to-back calls queued behind ``torch.cuda._sleep``
     (so the span holds the card's work, not the host's dispatch),
     cycling through copies of ``args`` that cover :data:`ROTATE_BYTES`;
-    best of ``repeat`` rounds after one warm-up call."""
+    best of ``repeat`` rounds after one warm-up pass over the copies.
+
+    A round is timed in spans of at most :data:`SPAN_CALLS` calls, each
+    behind its own sleep (the stream's queue of launches is finite, and
+    a host that waits for a slot lets the sleep run out), summed. The
+    sleep outlasts the host's queueing of a span: it is at least
+    :data:`SLEEP_CYCLES` and twice the warm-up's host time for a span at
+    ~2 GHz, and a span whose sleep ended before its last call was queued
+    (the card could have waited on the host) is run once more behind a
+    sleep of four times that span's host time. A span that still waits
+    (a ``fn`` of more launches than the queue holds, such as the
+    unpacking oracle's ~200) is kept as it is: its time is the host's."""
     nbytes = sum(t.numel() * t.element_size() for t in args)
     copies = max(2, -(-ROTATE_BYTES // nbytes))
     sets = [args] + [tuple(t.clone() for t in args)
                      for _ in range(copies - 1)]
-    fn(*args)
+    spans = [sets[i:i + SPAN_CALLS] for i in range(0, copies, SPAN_CALLS)]
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in sets:
+        fn(*s)
+    host_s = (time.perf_counter() - t0) * len(spans[0]) / copies
+    torch.cuda.synchronize()
+    sleep = max(SLEEP_CYCLES, int(4e9 * host_s))
     best = float("inf")
     for _ in range(repeat):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for s in sets:
-            fn(*s)
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) * 1e3 / len(sets))
+        ms = 0.0
+        for span in spans:
+            for retry in (False, True):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(sleep)
+                start.record()
+                t0 = time.perf_counter()
+                for s in span:
+                    fn(*s)
+                queued_s = time.perf_counter() - t0
+                end.record()
+                starved = start.query()
+                end.synchronize()
+                if not starved or retry:
+                    break
+                sleep = max(sleep, int(8e9 * queued_s))
+            ms += start.elapsed_time(end)
+        best = min(best, ms * 1e3 / copies)
     return best
 
 

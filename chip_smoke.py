@@ -22,8 +22,14 @@ into ``build/repro_torch/`` and then, failing on the first error:
 4. holds the charge-sharing kernel against its plain version (rtol 1e-5,
    atol 1e-7 V) at v [12, N, 65536] for N = 4, 8, 16, 32 and at ragged
    shapes, and the MAJ-N kernel bit-exact at N = 3, 5, 7, 32 over every
-   threshold at W = 1001, 65536 and 2M words; times both (raw launches
-   rotating buffers past the L2 cache) beside their plain versions;
+   threshold at W = 1001, 65536 and 2M words, at the chip model's [N,
+   2048] for N = 1..32 over every threshold, and past 32 planes (N = 33
+   to 4096, W = 1, 31, 2049, 65536); times the charge-sharing kernel
+   (raw launches rotating buffers past the L2 cache) and the MAJ-N kernel
+   at its four main-path shapes ([31, 65536], [3, 2M], [N, 2048] for N =
+   3, 7, 15, 31, with ``tools/maj_n_timing.py``: device time, bound,
+   share, and the floors of a same-bytes ``copy_`` and an empty kernel)
+   beside their plain versions;
 5. drives the main path through the public entry point
    ``repro_torch.pum.device(width=...)`` (default device ``cuda``):
    prog16 at 2M and 32M lanes, mulprog16 at width 16, a width-64 program
@@ -1770,22 +1776,26 @@ def lm_train(device: str, build, seed: int) -> dict:
         _, n_ops = codegen.generate(prog)
         k2_bytes = 4 * s2[2] * prog.width * (prog.n_inputs
                                              + len(prog.outputs))
+        # Device time through the wrappers, inputs rotated past 128 MiB
+        # (benchmarks/torch_kernel_bench.py::device_us).
+        from benchmarks.torch_kernel_bench import device_us
         out["train_k1"] = (
-            cuda_ms(lambda: ops.bit_transpose32(x1), 50),
+            device_us(ops.bit_transpose32, (x1,), 3) / 1e3,
             cuda_ms(lambda: ref.bit_transpose32(x1), 3, rounds=3),
             2 * x1.numel() * 4 / HBM_BYTES_PER_S * 1e3, g)
         out["train_k2"] = (
-            cuda_ms(lambda: fp.run_program_cuda(prog, x2), 50),
+            device_us(lambda x: fp.run_program_cuda(prog, x), (x2,), 3)
+            / 1e3,
             cuda_ms(lambda: fp.run_program_ref(prog, x2), 3, rounds=3),
             max(k2_bytes / HBM_BYTES_PER_S,
                 n_ops * s2[2] / ALU_OPS_PER_S) * 1e3, s2)
-        print(f"K1 at the train path's largest shape {list(g)}: bit-exact, "
-              f"through the wrapper {out['train_k1'][0]:.4f} ms, plain "
-              f"{out['train_k1'][1]:.4f} ms, bound {out['train_k1'][2]:.4f} "
-              f"ms; K2 ({len(prog.ops)} ops) at {list(s2)}: bit-exact, "
-              f"through the wrapper {out['train_k2'][0]:.4f} ms, plain "
-              f"{out['train_k2'][1]:.4f} ms, bound {out['train_k2'][2]:.4f} "
-              f"ms")
+        for name, (ms, plain, bound, shape) in (
+                ("K1", out["train_k1"]),
+                (f"K2 ({len(prog.ops)} ops)", out["train_k2"])):
+            print(f"{name} at the train path's largest shape {list(shape)}: "
+                  f"bit-exact, {ms:.4f} ms a launch on the rotated device "
+                  f"timer, plain {plain:.4f} ms, bound {bound:.4f} ms, "
+                  f"{bound / ms:.0%} of it")
         del x1, x2
     del grads, cq, ce, hq, he, votes
 
@@ -4010,6 +4020,7 @@ def main() -> int:
         from repro_torch.config.base import get_smoke_config
         from repro_torch.pum import capture as capture_mod
         from repro_torch.serve.engine import ServeEngine
+        from tools import maj_n_timing
         k4 = importlib.import_module("repro_torch.kernels.bitserial_add")
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
@@ -4062,7 +4073,8 @@ def main() -> int:
     check(len(serve_programs) == 1, f"{len(serve_programs)} stop programs")
     t0 = time.perf_counter()
     _build.build_many([bit_transpose.build_item(), charge_share.build_item(),
-                       maj_n.build_item(), k4.build_item()]
+                       maj_n.build_item(), k4.build_item(),
+                       maj_n_timing.empty_item()]
                       + [codegen.build_item(p) for p in
                          list(main_programs.values()) + random_programs
                          + serve_programs])
@@ -4232,63 +4244,89 @@ def main() -> int:
 
     # -- 3c. MAJ-N kernel vs its plain version --------------------------- #
     k3_err = 0
-    for n in (3, 5, 7, 32):
-        for w in (1001, 65536, 1 << 21):
-            x = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
-                              device=cuda)
-            x[:, :7] = -1
-            for t in range(1, n + 1):
-                got = maj_n.maj_n_cuda(x, t)
-                want = ref.maj_n_fast(x, t)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                k3_err = max(k3_err, err)
-                check(err == 0, f"maj_n kernel disagrees at N={n} W={w} "
-                                f"threshold {t}")
-            check(torch.equal(got, ref.maj_n(x, n)),
-                  f"maj_n kernel disagrees with the unpacking oracle at N={n}")
-        print(f"K3 maj_n N={n}: bit-exact at W = 1001, 65536, 2M, every "
-              f"threshold")
-    # Timed at the replica vote's shape: 3 replicas of a 2M-lane wire.
-    k3_n, k3_w = 3, 1 << 21
 
-    def k3_pair():
-        t = torch.randint(-2**31, 2**31 - 1, (k3_n, k3_w), dtype=torch.int32,
-                          device=cuda)
-        return t, torch.empty(k3_w, dtype=torch.int32, device=cuda)
+    def k3_hold(x, thresholds, oracle_t, plain_on_cpu=False):
+        """One launch a threshold, bit-exact against ``ref.maj_n_fast`` on
+        the same planes (on a CPU copy where that is quicker: it is a
+        few small ops a plane), and at ``oracle_t`` against the unpacking
+        oracle ``ref.maj_n`` too."""
+        nonlocal k3_err
+        n, w = x.shape
+        xc = x.cpu() if plain_on_cpu else x
+        for t in thresholds:
+            got = maj_n.maj_n_cuda(x, t)
+            err = max_abs_err(got.to(xc.device), ref.maj_n_fast(xc, t))
+            k3_err = max(k3_err, err)
+            check(err == 0, f"maj_n kernel disagrees at N={n} W={w} "
+                            f"threshold {t}")
+        got = maj_n.maj_n_cuda(x, oracle_t)
+        check(torch.equal(got, ref.maj_n(x, oracle_t)),
+              f"maj_n kernel disagrees with the unpacking oracle at N={n} "
+              f"W={w} threshold {oracle_t}")
 
-    k3_pairs = rotation(k3_pair, (k3_n + 1) * k3_w * 4)
-    k3_lib = maj_n.library()
-    k3_ms = cuda_ms(cycle_launch(
-        k3_lib, maj_n.ENTRY,
-        [(x.data_ptr(), o.data_ptr(), k3_n, k3_w, 2, _build.stream_of(x))
-         for x, o in k3_pairs]), 200)
-    for x, o in k3_pairs:
-        check(torch.equal(o, ref.maj_n_fast(x, 2)),
-              "maj_n kernel disagrees in the timing run")
-    x = k3_pairs[0][0]
-    k3_plain = cuda_ms(lambda: ref.maj_n_fast(x, 2), 20)
-    k3_bytes = (k3_n + 1) * k3_w * 4
-    k3_bound_b = k3_bytes / HBM_BYTES_PER_S * 1e3
-    k3_k = k3_n.bit_length()
-    k3_bound_o = k3_w * k3_n * (3 * k3_k + 1) / ALU_OPS_PER_S * 1e3
-    k3_bound = max(k3_bound_b, k3_bound_o)
-    print(f"K3 at N={k3_n} W={k3_w} (a 3-replica vote of 2M lanes): kernel "
-          f"{k3_ms:.4f} ms, plain {k3_plain:.4f} ms, bound {k3_bound:.4f} "
-          f"ms ({k3_bytes} bytes)")
-    for n in (33, 35, 64, 255):
-        x = torch.randint(-2**31, 2**31 - 1, (n, 65536), dtype=torch.int32,
+    def k3_planes(n, w):
+        x = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
                           device=cuda)
         x[:, :7] = -1
-        for t in sorted({1, n // 2 + 1, n}):
-            got = maj_n.maj_n_cuda(x, t)
-            want = ref.maj_n_fast(x, t)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            k3_err = max(k3_err, err)
-            check(err == 0, f"maj_n kernel disagrees at N={n} threshold {t}")
-        print(f"K3 maj_n N={n} (past 32 planes): bit-exact at W = 65536, "
-              f"thresholds 1, {n // 2 + 1}, {n}")
+        return x
+
+    for n in (3, 5, 7, 32):
+        for w in (1001, 65536, 1 << 21):
+            k3_hold(k3_planes(n, w), range(1, n + 1), n)
+        print(f"K3 maj_n N={n}: bit-exact at W = 1001, 65536, 2M, every "
+              f"threshold")
+    # The chip model's votes: [N, 2048], a PAPER_MODULE row.
+    for n in range(1, 33):
+        k3_hold(k3_planes(n, 2048), range(1, n + 1), n // 2 + 1,
+                plain_on_cpu=True)
+    print("K3 maj_n at the chip model's [N, 2048], N = 1..32: bit-exact at "
+          "every threshold (the plain version on a CPU copy), against the "
+          "oracle at N // 2 + 1")
+    for n in (33, 35, 64, 255):
+        k3_hold(k3_planes(n, 65536), sorted({1, n // 2 + 1, n}), n // 2 + 1)
+    for n in (33, 255):
+        for w in (1, 31, 2049):
+            k3_hold(k3_planes(n, w), sorted({1, n // 2 + 1, n}), n // 2 + 1,
+                    plain_on_cpu=True)
+    for w in (1, 31, 2049):
+        x = k3_planes(4096, w)
+        for t in (1, 2049, 4096):
+            check(torch.equal(maj_n.maj_n_cuda(x, t), ref.maj_n(x, t)),
+                  f"maj_n kernel disagrees with the oracle at N=4096 W={w} "
+                  f"threshold {t}")
+    k3_hold(x, [2049], 2049, plain_on_cpu=True)
+    print("K3 maj_n past 32 planes: bit-exact at N = 33, 35, 64, 255 (W = "
+          "65536) and N = 33, 255 (W = 1, 31, 2049) at thresholds 1, "
+          "N // 2 + 1, N; N = 4096 at W = 1, 31, 2049 against the oracle "
+          "at thresholds 1, 2049, 4096 and against the plain version at "
+          "W = 2049, threshold 2049")
+    # Timed with device_us (CUDA events, raw launches queued behind a
+    # sleep, inputs rotated past 128 MiB) at the four main-path shapes.
+    k3_recs = maj_n_timing.measure(
+        maj_n.library(), _build.load(*maj_n_timing.empty_item(),
+                                     "empty_launch",
+                                     maj_n_timing.EMPTY_ARGTYPES))
+    k3_floors = k3_recs.pop()
+    for r in k3_recs:
+        print(f"K3 at {r['shape']} ({r['what']}, threshold "
+              f"{r['threshold']}, geometry {r['geometry']}): "
+              f"{r['us']:.3f} us, bound {r['bound_us']:.4f} us "
+              f"({r['bound_by']}), {r['share']:.1%} of it")
+    print(f"K3 floors on the same timer ({smi}): copy_ of 4 MiB into 4 MiB "
+          f"{k3_floors['copy_us']:.3f} us (the bytes of [31, 65536]), of "
+          f"16 MiB into 16 MiB {k3_floors['copy_vote_us']:.3f} us (those "
+          f"of [3, 2M]), an empty kernel with K3's [31, 2048] grid "
+          f"{k3_floors['empty_us']:.3f} us")
+    vote = next(r for r in k3_recs if r["what"] == "replica_vote")
+    k3_n, k3_w = vote["shape"]
+    x = k3_planes(k3_n, k3_w)
+    k3_ms = vote["us"] / 1e3
+    k3_plain = cuda_ms(lambda: ref.maj_n_fast(x, 2), 20)
+    k3_bound = vote["bound_us"] / 1e3
+    k3_bound_by = vote["bound_by"]
+    print(f"K3 at N={k3_n} W={k3_w} (a 3-replica vote of 2M lanes): kernel "
+          f"{k3_ms:.4f} ms, plain {k3_plain:.4f} ms, bound {k3_bound:.4f} "
+          f"ms ({(k3_n + 1) * k3_w * 4} bytes)")
 
     # -- 3d. bit-serial add kernel vs its plain version ------------------ #
     k4_err = 0
@@ -4337,7 +4375,7 @@ def main() -> int:
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
               f"{max(bound_b, bound_o):.4f} ms ({nbytes} bytes)")
         del k4_sets, a, b
-    del k5_sets, k3_pairs, x, v, c
+    del k5_sets, x, v, c
     clock.stamp("3")
 
     # -- 4. the main path through the public entry point ----------------- #
@@ -5067,8 +5105,13 @@ def main() -> int:
          **kernel_bench_keys("maj_n"),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": "bytes" if k3_bound_b >= k3_bound_o else "operations",
-         "library_ms": None,
+         "bound_by": k3_bound_by,
+         "library_ms": None, "shape": [k3_n, k3_w],
+         "device_us": [{k: r[k] for k in ("shape", "threshold", "geometry",
+                                          "us", "bound_us", "share")}
+                       for r in k3_recs],
+         **{k: k3_floors[k] for k in ("copy_us", "copy_vote_us",
+                                       "empty_us")},
          "launches_chip_model": chip_launches["maj_n"],
          "launches_sim": sim_launches["maj_n"],
          "launches_controller_injected": ctrl_inj_launches["maj_n"],

@@ -8,7 +8,8 @@
   CUDA source: the code generator traces these same functions over
   symbolic planes (``kernels/codegen.py``);
 * :func:`maj_n` / :func:`maj_n_fast` — the plain versions of the MAJ-N
-  kernel (``kernels/maj_n.py``);
+  kernel (``kernels/maj_n.py``); :func:`maj_n_grouped` — its split into
+  row groups, for the tests;
 * :func:`charge_share` — the plain version of the charge-sharing kernel
   (``kernels/charge_share.py``);
 * :func:`bitserial_add` — the plain version of the bit-serial add kernel
@@ -109,6 +110,50 @@ def maj_n_fast(x: torch.Tensor, threshold: int) -> torch.Tensor:
             carry = planes[j] & carry
             planes[j] = t
         overflow = overflow | carry
+    return overflow
+
+
+def _ripple_add(a: list, b: list) -> torch.Tensor:
+    """``a += b`` on bit-sliced counters (planes LSB first), in place;
+    returns the carry out of the top plane."""
+    carry = torch.zeros_like(a[0])
+    for j in range(len(a)):
+        t = a[j] ^ b[j]
+        a[j], carry = t ^ carry, (a[j] & b[j]) | (carry & t)
+    return carry
+
+
+def maj_n_grouped(x: torch.Tensor, threshold: int, groups: int
+                  ) -> torch.Tensor:
+    """:func:`maj_n_fast` as the CUDA kernel decomposes it: group g of
+    ``groups`` counts planes ``[g*N//groups, (g+1)*N//groups)`` in its own
+    K-bit counter (group 0's seeded with ``2^K - threshold``, the others
+    at 0), the counters meet in the kernel's tree of ripple adders
+    (stride 1, 2, 4, ...), and the result is the OR of every carry out of
+    the top plane. Exact because ``init + count < 2^(K+1)`` carries out
+    at most once (``csrc/maj_n.cu``)."""
+    n = _check_threshold(x, threshold)
+    if not 1 <= groups <= n:
+        raise ValueError(f"groups {groups} not in [1,{n}]")
+    k = max(1, n.bit_length())
+    init = (1 << k) - threshold
+    zero = torch.zeros_like(x[0])
+    overflow = zero
+    counters = []
+    for g in range(groups):
+        seed = init if g == 0 else 0
+        planes = [zero - 1 if (seed >> j) & 1 else zero for j in range(k)]
+        for i in range(g * n // groups, (g + 1) * n // groups):
+            carry = x[i]
+            for j in range(k):
+                planes[j], carry = planes[j] ^ carry, planes[j] & carry
+            overflow = overflow | carry
+        counters.append(planes)
+    s = 1
+    while s < groups:
+        for g in range(0, groups - s, 2 * s):
+            overflow = overflow | _ripple_add(counters[g], counters[g + s])
+        s *= 2
     return overflow
 
 

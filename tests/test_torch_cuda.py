@@ -82,6 +82,57 @@ def test_maj_n_kernel_matches_plain(cuda, n, w):
         assert ops.LAUNCHES["maj_n"] == before + 1
 
 
+@pytest.mark.parametrize("n", range(1, 33))
+def test_maj_n_kernel_at_the_chip_shape(cuda, n):
+    """The chip model's votes: [N, 2048] (a PAPER_MODULE row) at every
+    threshold, one launch a call."""
+    x = torch.randint(-2**31, 2**31 - 1, (n, 2048), dtype=torch.int32,
+                      device=cuda)
+    x[:, :7] = -1
+    for t in range(1, n + 1):
+        before = ops.LAUNCHES["maj_n"]
+        got = ops.maj_n(x, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.maj_n_fast(x, t)), t
+        assert ops.LAUNCHES["maj_n"] == before + 1
+    assert torch.equal(got, ref.maj_n(x, n))
+
+
+@pytest.mark.parametrize("n", [33, 255, 4096])
+@pytest.mark.parametrize("w", [1, 31, 2049])
+def test_maj_n_kernel_ragged_and_many_planes(cuda, n, w):
+    """Ragged widths (4-byte loads) and many row groups; the plain
+    version runs on the CPU copy (N = 4096 is 160K small ops)."""
+    x = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
+                      device=cuda)
+    x[:, :5] = -1
+    for t in sorted({1, n // 2 + 1, n}):
+        before = ops.LAUNCHES["maj_n"]
+        got = ops.maj_n(x, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref.maj_n_fast(x.cpu(), t)), t
+        assert torch.equal(got, ref.maj_n(x, t)), t
+        assert ops.LAUNCHES["maj_n"] == before + 1
+
+
+@pytest.mark.parametrize("n,w,groups,tile", [
+    (8, 64, 0, 16), (8, 64, 9, 16), (8, 64, 1, 6), (8, 64, 1, 2),
+    (8, 64, 2, 1024), (65535, 512, 2, 512)])
+def test_maj_n_launch_refuses_a_bad_geometry(cuda, n, w, groups, tile):
+    """No row group, more groups than planes, a tile that is not whole
+    16-byte loads, more than 256 threads, the merge past 48 KB of shared
+    memory: refused with cudaErrorInvalidValue, nothing launched."""
+    from repro_torch.kernels import _build, maj_n
+    x = torch.zeros((n, w), dtype=torch.int32, device=cuda)
+    out = torch.full((w,), 7, dtype=torch.int32, device=cuda)
+    lib = maj_n.library()
+    rc = lib.maj_n_launch(x.data_ptr(), out.data_ptr(), n, w, 1, groups,
+                          tile, _build.stream_of(x))
+    torch.cuda.synchronize()
+    assert rc == 1  # cudaErrorInvalidValue
+    assert bool((out == 7).all())
+
+
 @pytest.mark.parametrize("p", [None, 12])
 @pytest.mark.parametrize("n,b", [(4, 65536), (32, 65536), (9, 1001)])
 def test_charge_share_kernel_matches_plain(cuda, p, n, b):
